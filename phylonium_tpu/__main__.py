@@ -13,14 +13,14 @@ if __name__ == "__main__":
     except BaseException:
         # Any crash must still leave through os._exit below: a normal
         # interpreter teardown kills daemon device threads mid-call
-        # inside the TPU plugin and aborts with "terminate called ..."
-        # (SIGABRT), burying the actual traceback.
+        # inside the device runtime and can abort with "terminate
+        # called ..." (SIGABRT), burying the actual traceback.
         import traceback
 
         traceback.print_exc()
         rc = 1
     # Perf invariant (tested): a host-dispatched run must never import
-    # jax — the import alone costs ~1.8 s on this deployment's host.
+    # jax — the import alone costs ~1.8 s.
     if os.environ.get("PHYLONIUM_TPU_EXPECT_NO_JAX") and "jax" in sys.modules:
         print(
             "PHYLONIUM_TPU_EXPECT_NO_JAX: jax was imported on a "
@@ -28,9 +28,9 @@ if __name__ == "__main__":
             file=sys.stderr,
         )
         rc = rc or 70
-    # Hard exit: background device threads (backend handshake, the
-    # compare race's losing side, prewarm compiles) may still be inside
-    # the TPU plugin; normal interpreter teardown aborts with
+    # Hard exit: background device threads (backend init, the compare
+    # race's losing side, prewarm compiles) may still be inside the
+    # device runtime; normal interpreter teardown can abort with
     # "terminate called ..." when it kills them mid-call.  All outputs
     # are written and flushed by main(); nothing below us needs atexit.
     sys.stdout.flush()

@@ -10,7 +10,7 @@ the seqcmp / revseqcmp counting rules (`libs/seqcmp.h:14`,
 - mixed strands: count positions where ``begin[i]`` is NOT the complement
   of ``other[len-1-i]``, complement test ``((a ^ b) & 6) == 4`` on ASCII.
 
-It exists to validate the TPU pileup path (which must produce bit-equal
+It exists to validate the device pileup path (which must produce bit-equal
 counts) and to serve small inputs without a device.
 """
 

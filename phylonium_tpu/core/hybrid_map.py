@@ -2,7 +2,7 @@
 
 Build-plan stage 4 (SURVEY.md §7): the per-byte work of the mapping
 phase — lucky-anchor LCP extension (`src/process.cxx:227-242`, ``lcp()``
-`src/process.cxx:171-184`) — runs on the TPU via
+`src/process.cxx:171-184`) — runs on the device via
 :func:`phylonium_tpu.ops.anchor_extend.diagonal_neq`, while the cheap,
 irregular chaining decisions stay on host.
 
@@ -252,11 +252,9 @@ def hybrid_map_queries(
     Returns raw (unsorted, unfiltered) homology lists per query, like
     core/anchors.anchor_homologies.
     """
-    from phylonium_tpu.utils.cache import enable_compile_cache
-    from phylonium_tpu.utils.platform import ensure_device_plugin
+    from phylonium_tpu.utils.platform import device_setup
 
-    ensure_device_plugin()  # device chokepoint (idempotent)
-    enable_compile_cache()
+    device_setup()  # device chokepoint (idempotent)
     import jax.numpy as jnp
 
     from phylonium_tpu.ops.anchor_extend import diagonal_neq, pad_text

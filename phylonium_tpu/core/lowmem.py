@@ -21,12 +21,11 @@ This pipeline bounds everything:
   counting kernel, window by window — counts are column-separable
   integer sums, so any split is exact;
 - the device compare needs no big host arrays at all: the streamed
-  feeder ships 2-bit codes + interval records per group (HBM holds the
-  nibble panel; 2.5 GB against 16 GB), racing the windowed host count.
+  feeder ships 2-bit codes + interval records per group (device memory
+  holds the 2.5 GB nibble panel), racing the windowed host count.
 
 Peak RSS ~= packed sequences + index + one mapping group + one column
-window: < 2.5 GB at 1000 x 5 Mbp (the measured run is in
-docs/ARCHITECTURE.md's scale table).
+window.
 
 Engages automatically on the plain auto path when the panel's raw
 bytes exceed PHYLONIUM_TPU_LOWMEM_BYTES (default 2 GB; '0' disables,
@@ -255,53 +254,31 @@ def map_count_lowmem(
         LAST_RUN_INFO,
         _set_carrier,
         finish_ship_accounting,
+        race,
         race_grace_if_warm,
     )
 
     t0 = time.time()
-    result = None
-    devd_count_s = None
     if feeder is not None:
-        import threading
-
         race_grace_if_warm(feeder)
-        outcome: dict = {}
-        done = threading.Event()
-
-        def device_work():
-            try:
-                outcome["result"] = feeder.finish()
-            except Exception as e:  # noqa: BLE001 — race absorbs
-                outcome["error"] = e
-            finally:
-                done.set()
-
-        threading.Thread(
-            target=device_work, daemon=True, name="compare-device"
-        ).start()
-        host = pair_counts_windowed(
-            queries, harrs, ref_len, poll=done.is_set, progress=progress
+        result = race(
+            lambda poll: pair_counts_windowed(
+                queries, harrs, ref_len, poll=poll, progress=progress
+            ),
+            feeder.finish,
+            cfg,
         )
-        if host is not None and "result" not in outcome:
-            result = host
-            carrier = "host"
-        else:
-            done.wait()
-            if "result" in outcome:
-                result = outcome["result"]
-                carrier = "device"
-                devd_count_s = feeder.devd_count_s
-    if result is None:
+        if LAST_RUN_INFO.get("compare_carrier") == "device" and (
+            feeder.devd_count_s is not None
+        ):
+            LAST_RUN_INFO["devd_count_s"] = feeder.devd_count_s
+    else:
         result = pair_counts_windowed(
             queries, harrs, ref_len, progress=progress
         )
-        carrier = "host"
+        _set_carrier("host")
     timings["compare"] = time.time() - t0
     cbar.finish()
-
-    _set_carrier(carrier)
-    if devd_count_s is not None:
-        LAST_RUN_INFO["devd_count_s"] = devd_count_s
     # cold-run seeding + early-ship stats (shared with the standard
     # pipeline): a drained lowmem run parks the whole compacted panel
     # in the device server and prewarms its program family, so the

@@ -1,4 +1,4 @@
-"""Reference-projected pileup — the TPU-native representation.
+"""Reference-projected pileup — the accelerator-native representation.
 
 This is the central data-structure redesign of this framework.  The
 reference compares every genome *pair* by intersecting homology interval
@@ -6,7 +6,7 @@ lists and running SIMD byte loops over the intersections
 (`src/process.cxx:524-549`, `libs/seqcmp*.c`) — O(N^2 * L) byte work with
 zero reuse.  Here each genome is instead projected **once** onto reference
 coordinates as a row of per-column states; all-pairs counting then becomes
-dense integer matmuls on the MXU (see phylonium_tpu/ops/match_matrix.py)
+dense integer matmuls (see phylonium_tpu/ops/pallas_match.py)
 with O(N * L) preparation and massive reuse.
 
 State encoding (uint8):

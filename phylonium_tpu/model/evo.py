@@ -1,7 +1,7 @@
 """Evolutionary substitution model — matrix-wide counts and estimators.
 
 Where the reference keeps one ``evo_model`` (a pair of counters,
-`src/evo_model.h:16-19`) per matrix cell and estimates per cell, the TPU
+`src/evo_model.h:16-19`) per matrix cell and estimates per cell, the device
 build keeps the whole N x N matrix as two integer arrays and estimates
 vectorized.  Semantics per cell mirror `src/evo_model.cxx`:
 

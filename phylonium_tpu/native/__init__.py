@@ -304,7 +304,7 @@ def pack_states_native(
     states: np.ndarray, n_pad: int, width: int
 ) -> np.ndarray:
     """Split-layout nibble packing in one native pass (see
-    ops/pallas_match.pack_states for the layout contract)."""
+    ops/shapes.pack_states for the layout contract)."""
     lib = get_lib()
     from phylonium_tpu.utils.bigalloc import empty as big_empty
 

@@ -11,11 +11,13 @@ from __future__ import annotations
 
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 SRC_DIR = Path(__file__).parent / "src"
 BUILD_DIR = Path(__file__).parent / "_build"
 LIB_NAME = "libphylonium_native.so"
+_BUILD_LOCK = threading.Lock()
 
 
 class NativeBuildError(RuntimeError):
@@ -36,26 +38,7 @@ def needs_rebuild() -> bool:
     )
 
 
-def build(verbose: bool = False) -> Path:
-    BUILD_DIR.mkdir(exist_ok=True)
-    sources = sorted(SRC_DIR.glob("*.cpp"))
-    if not sources:
-        raise NativeBuildError("no native sources found")
-
-    cxx = os.environ.get("CXX", "g++")
-    cmd = [
-        cxx,
-        "-O3",
-        "-march=native",
-        "-std=c++17",
-        "-fPIC",
-        "-shared",
-        "-fopenmp",
-        "-Wall",
-        "-o",
-        str(lib_path()),
-        *map(str, sources),
-    ]
+def _run(cmd: list[str]) -> None:
     try:
         proc = subprocess.run(
             cmd, capture_output=True, text=True, timeout=300
@@ -66,6 +49,56 @@ def build(verbose: bool = False) -> Path:
         raise NativeBuildError(
             f"native build failed:\n{proc.stderr[-4000:]}"
         )
+
+
+def _gomp_link_args(cxx: str) -> list[str]:
+    """How to link the OpenMP runtime: the compiler's own libgomp when
+    it has one, else the system's (a compiler can ship ``omp.h`` but no
+    runtime library)."""
+    try:
+        own = subprocess.run(
+            [cxx, "-print-file-name=libgomp.so"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        own = ""
+    if os.path.isabs(own) and os.path.exists(own):
+        return [own]
+    import ctypes.util
+
+    system = ctypes.util.find_library("gomp")
+    return [f"-l:{system}"] if system else ["-lgomp"]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile, then link against libgomp in a separate step: a g++
+    that compiles OpenMP may still lack the ``libgomp.spec`` that
+    ``-fopenmp`` at link time reads.  The library is linked under a
+    name of this process's own and moved into place, so a concurrent
+    process never loads a half-written file (threads of one process
+    take turns through ``ensure_built``)."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    sources = sorted(SRC_DIR.glob("*.cpp"))
+    if not sources:
+        raise NativeBuildError("no native sources found")
+
+    cxx = os.environ.get("CXX", "g++")
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}"
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    try:
+        for src, obj in zip(sources, objs):
+            _run([
+                cxx, "-O3", "-march=native", "-std=c++17", "-fPIC",
+                "-fopenmp", "-Wall", "-c", "-o", str(obj), str(src),
+            ])
+        _run([
+            cxx, "-shared", "-o", str(tmp), *map(str, objs),
+            *_gomp_link_args(cxx), "-pthread",
+        ])
+        os.replace(tmp, lib_path())
+    finally:
+        for path in (tmp, *objs):
+            path.unlink(missing_ok=True)
     if verbose:
         print(f"built {lib_path()}")
     return lib_path()
@@ -74,6 +107,8 @@ def build(verbose: bool = False) -> Path:
 def ensure_built() -> Path:
     if os.environ.get("PHYLONIUM_TPU_NATIVE", "1") == "0":
         raise NativeBuildError("native backend disabled by env")
-    if needs_rebuild():
-        build()
+    # threads of one process share the build's file names: one builds
+    with _BUILD_LOCK:
+        if needs_rebuild():
+            build()
     return lib_path()

@@ -1,6 +1,6 @@
 // phylonium-tpu native host library.
 //
-// Host-side compute for the TPU-native distance engine: suffix-array
+// Host-side compute for the accelerated distance engine: suffix-array
 // construction (SA-IS), longest-prefix-match queries, and the anchor
 // chaining state machine.  This replaces the role of the reference's
 // libdivsufsort + ESA machinery (reference: /root/reference/src/esa.cxx)
@@ -1823,7 +1823,7 @@ static bool use_plane_kernel(i64 n) {
 #endif  // __AVX512BW__ && __AVX512VPOPCNTDQ__
 
 // Split-layout nibble packing of the pileup (the host side of the packed
-// device path, see ops/pallas_match.pack_states): byte [g, j] =
+// device path, see ops/shapes.pack_states): byte [g, j] =
 // state[g, j] | state[g, j + ceil(L/2)] << 4, INVALID-padded.  One pass,
 // OpenMP over rows; replaces a multi-temporary numpy formulation that
 // cost seconds at 1000-genome scale.

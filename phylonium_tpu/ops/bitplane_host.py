@@ -2,8 +2,7 @@
 
 This is the cold-start fallback of the adaptive compare backend: when the
 device kernel executable is not yet available (first run on a machine
-with an empty compile cache, or a degraded remote compile service), the
-pipeline counts on the host while the kernel compiles in the background
+with an empty compile cache), the pipeline counts on the host while the kernel compiles in the background
 (core/pipeline.pair_counts).  It replaces the reference's SIMD mismatch
 loops (libs/seqcmp*.c, libs/revseqcmp*.c) with the same trick those use
 — bit-parallel compares — expressed as numpy popcounts over packed
@@ -17,10 +16,9 @@ that match s per the 11x11 MATCH_TABLE (ops/match_table.py), and V the
 validity plane.  Partner states are distinct, so the OR loses nothing
 and the result is bit-exact vs the scalar oracle (pair_counts_numpy).
 
-Throughput on this host is ~4 GB/s through the AND+popcount pipe; an
-eco29-scale panel (29 x 5 Mbp) counts in a few seconds — far from the
-TPU kernel's milliseconds, but enough that a cold start never waits for
-a minutes-long remote compile.
+An eco29-scale panel (29 x 5 Mbp) counts in a few seconds on the host
+— slower than the device kernel, but enough that a cold start never
+waits for a first compile.
 
 Column chunking bounds plane memory and gives the caller an abort hook:
 ``poll`` is consulted between chunks so a race against the device

@@ -1,57 +1,47 @@
-"""All-pairs match counting on device (XLA path).
+"""Plain XLA reference of the device counting kernel.
 
-Converts pileup state blocks into one-hot planes and contracts them on the
-MXU.  For a column block ``blk`` of shape [N, B]:
+Converts a pileup state block into one-hot planes in device memory and
+contracts them with ordinary einsums.  For a column block ``blk`` of
+shape [N, B]:
 
     P[n, b, s] = 1{blk[n, b] == s}                (10 state planes, bf16)
-    Q[m, b, s] = MATCH_TABLE[s, blk[m, b]]        (gathered, values 0/1)
+    Q[m, b, s] = MATCH_TABLE[s, blk[m, b]]        (applied by matmul)
     matches   += einsum('nbs,mbs->nm', P, Q)      (one [N, 10B] x [10B, N])
     homologs  += einsum('nb,mb->nm', V, V)        (validity plane)
 
 Exactness: all inputs are 0/1 (exact in bf16) and each block contributes
 at most B <= 2^22 to any f32 accumulator cell, well inside the 2^24 exact
--integer range of f32; blocks are then accumulated in int32.  Counts are
-therefore bit-exact integers regardless of block split or sharding — the
-property that also makes the multi-chip psum merge exact
-(phylonium_tpu/parallel).
+-integer range of f32.
 
-This replaces the reference's SIMD mismatch loops (libs/seqcmp*.c,
-libs/revseqcmp*.c) with MXU matmuls — the TPU-native formulation.
+The fused kernel (ops/pallas_match.py) computes the same counts without
+writing the ~40 bytes per genome-column these planes take; it replaced
+this formulation on the device path because it is faster at every panel
+shape measured (PERF.md).  This stays as the plain reference the kernel
+is tested and timed against.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from phylonium_tpu.core.pileup import INVALID, N_STATES
 from phylonium_tpu.ops.match_table import MATCH_TABLE
 
-# Default number of pileup columns per device block.
-DEFAULT_BLOCK = 1 << 20
 
-
-def _tables():
-    # the valid 10x10 corner of the match table, bf16 for MXU use
+def block_counts(blk: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """(matches, homologs) int32 [N, N] for one column block [N, B]."""
+    # the valid 10x10 corner of the match table
     mt = jnp.asarray(
         MATCH_TABLE[:N_STATES, :N_STATES].astype(np.float32),
         dtype=jnp.bfloat16,
     )
-    return mt
-
-
-def block_counts(blk: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """(matches, homologs) int32 [N, N] for one column block [N, B]."""
-    mt = _tables()
     valid = (blk != INVALID).astype(jnp.bfloat16)  # [N, B]
     planes = (
         blk[..., None] == jnp.arange(N_STATES, dtype=blk.dtype)
     ).astype(jnp.bfloat16)  # [N, B, 10]
-    # apply the match table by matmul, not gather: XLA pads per-element
-    # gathers of tiny tables catastrophically (11x HBM expansion)
+    # apply the match table by matmul, not gather: per-element gathers
+    # of a tiny table are slow
     q = jnp.einsum(
         "nbt,st->nbs", planes, mt, preferred_element_type=jnp.bfloat16
     )  # [N, B, 10], values 0/1
@@ -63,55 +53,3 @@ def block_counts(blk: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
         "nb,mb->nm", valid, valid, preferred_element_type=jnp.float32
     )
     return matches.astype(jnp.int32), homs.astype(jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("block",))
-def _pair_counts_scanned(states: jnp.ndarray, block: int):
-    n, total = states.shape
-    nblocks = total // block
-    blocks = states.reshape(n, nblocks, block).transpose(1, 0, 2)
-
-    def step(carry, blk):
-        m, h = block_counts(blk)
-        cm, ch = carry
-        return (cm + m, ch + h), None
-
-    init = (
-        jnp.zeros((n, n), dtype=jnp.int32),
-        jnp.zeros((n, n), dtype=jnp.int32),
-    )
-    (matches, homs), _ = jax.lax.scan(step, init, blocks)
-    return matches, homs
-
-
-def pair_counts_device(
-    states: np.ndarray, block: int = DEFAULT_BLOCK
-) -> tuple[np.ndarray, np.ndarray]:
-    """All-pairs (substitutions, homologs) via the device path.
-
-    ``states``: [N, L] uint8 pileup.  Returns int64 host arrays with the
-    diagonal zeroed (the reference never compares a genome with itself,
-    src/process.cxx:525-529).
-    """
-    from phylonium_tpu.ops.pallas_match import bucket_cols
-
-    n, length = states.shape
-    block = int(min(block, max(256, 1 << (max(length, 1) - 1).bit_length())))
-    # power-of-two shape buckets: similar-length genomes share one
-    # compiled executable (remote compiles are expensive)
-    pad = bucket_cols(length, block) - length
-    if isinstance(states, np.ndarray):
-        if pad:
-            states = np.pad(
-                states, ((0, 0), (0, pad)), constant_values=INVALID
-            )
-        states = jnp.asarray(states)
-    elif pad:
-        states = jnp.pad(states, ((0, 0), (0, pad)), constant_values=INVALID)
-    matches, homs = _pair_counts_scanned(states, block)
-    matches = np.asarray(matches, dtype=np.int64)
-    homs = np.asarray(homs, dtype=np.int64)
-    subs = homs - matches
-    np.fill_diagonal(subs, 0)
-    np.fill_diagonal(homs, 0)
-    return subs, homs

@@ -1,21 +1,22 @@
 """Sharded all-pairs counting over a device mesh.
 
-The pileup ``states [N, L]`` is sharded ``P('rows', 'cols')``:
+The pileup ``[N, L]`` (state bytes, or nibble-packed ``[N, L/2]`` when
+the streamed multi-process feeder built it on the devices) is sharded
+``P('rows', 'cols')``:
 
 - each device holds a genome block x column block;
 - it ``all_gather``s the other genome blocks' states *for its own column
-  shard only* (communication rides the ``rows`` axis, volume N*L/cols per
-  device);
-- computes its [N_loc, N] block of per-column-shard counts with the same
-  MXU contraction as the single-chip path (ops/match_matrix.block_counts);
+  shard only* (communication rides the ``rows`` axis, volume
+  N*width/cols per device);
+- computes its [N_loc, N] block of per-column-shard counts with the
+  same fused kernel as the single-device path (ops/device_counts);
 - ``psum`` over ``cols`` merges the exact integer partials.
 
 Counts are commutative integer sums, so the result is bit-identical to
 the single-device path for any mesh shape — asserted in
-tests/test_parallel.py on an 8-device CPU mesh.
-
-Multi-host: the same code runs under ``jax.distributed`` with the mesh
-spanning hosts; ``rows`` should map to DCN, ``cols`` to ICI.
+tests/test_parallel.py on an 8-device CPU mesh.  The collectives are
+plain ``all_gather`` and ``psum``; every device reaches every other at
+the same rate, so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -28,187 +29,90 @@ import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from phylonium_tpu.core.pileup import INVALID
-from phylonium_tpu.ops.match_matrix import block_counts
+from phylonium_tpu.ops.shapes import (
+    COL_CHUNK,
+    _PACKED_PAD,
+    pad_rows,
+    tile_for,
+)
 
 
-def _local_counts_pallas(
-    states_local: jnp.ndarray,
-    block: int,
-    interpret: bool = False,
-    packed: bool = False,
-):
-    """Pallas-backed shard counts: my rows x all rows (TPU fast path).
+def _local_counts(states_local: jnp.ndarray, symmetric: bool,
+                  packed: bool, interpret: bool = False):
+    """Shard counts: my rows x all rows of my column shard.
 
-    With ``packed`` the shard carries two 4-bit states per byte (see
-    ops.pallas_match.pack_states), halving the all_gather volume over
-    the 'rows' axis — the path's only inter-device data movement.
+    The 'rows'-axis all_gather is the path's only bulk inter-device
+    data movement.  On a one-row mesh (``symmetric``) the gathered block
+    IS the local one, and the kernel computes only the upper triangle.
     """
-    from phylonium_tpu.ops.pallas_match import (
-        _MAX_COLS_PER_CALL,
-        _PACKED_PAD,
-        _pad_rows,
-        cross_counts_pallas,
-    )
+    from phylonium_tpu.ops.device_counts import cross_counts
 
-    gathered = jax.lax.all_gather(states_local, "rows", axis=0, tiled=True)
-
-    na, lc = states_local.shape
-    nb = gathered.shape[0]
-    na_pad, nb_pad = _pad_rows(na), _pad_rows(nb)
     fill = _PACKED_PAD if packed else INVALID
-    mine = jnp.pad(
-        states_local, ((0, na_pad - na), (0, 0)), constant_values=fill
-    )
-    everyone = jnp.pad(
-        gathered, ((0, nb_pad - nb), (0, 0)), constant_values=fill
-    )
 
-    cap = _MAX_COLS_PER_CALL // (2 if packed else 1)
-    chunk = max(block, (cap // block) * block)
-    m = jnp.zeros((na_pad, nb_pad), jnp.int32)
-    h = jnp.zeros((na_pad, nb_pad), jnp.int32)
-    for start in range(0, lc, chunk):
-        end = min(start + chunk, lc)
-        mm, hh = cross_counts_pallas(
-            mine[:, start:end], everyone[:, start:end], block,
-            interpret, packed,
+    def pad_to(x, rows):
+        return jnp.pad(
+            x, ((0, rows - x.shape[0]), (0, 0)), constant_values=fill
         )
-        m = m + mm
-        h = h + hh
 
-    m = jax.lax.psum(m[:na, :nb], "cols")
-    h = jax.lax.psum(h[:na, :nb], "cols")
-    return m, h
-
-
-def _local_counts(states_local: jnp.ndarray, block: int):
-    """Counts for this device's shard: [N_loc, Lc] vs all-gathered rows."""
-    gathered = jax.lax.all_gather(
-        states_local, "rows", axis=0, tiled=True
-    )  # [N, Lc]
-
-    n_loc, lc = states_local.shape
-    nblocks = lc // block
-
-    my_blocks = states_local.reshape(n_loc, nblocks, block).transpose(1, 0, 2)
-    all_blocks = gathered.reshape(-1, nblocks, block).transpose(1, 0, 2)
-
-    def step(carry, blk_pair):
-        mine, everyone = blk_pair
-        m, h = _cross_block_counts(mine, everyone)
-        cm, ch = carry
-        return (cm + m, ch + h), None
-
-    n_total = gathered.shape[0]
-    # mark the carry as varying over the mesh axes so it matches the
-    # per-shard block counts (jax >= 0.9 tracks varying manual axes)
-    zeros = jax.lax.pcast(
-        jnp.zeros((n_loc, n_total), dtype=jnp.int32),
-        ("rows", "cols"),
-        to="varying",
+    # the kernel's row tiles are padded here, inside the shard, so the
+    # row blocks themselves (and each process's mapping share) stay
+    # ceil(N / rows) genomes
+    na = states_local.shape[0]
+    na_pad = pad_rows(na)
+    mine = pad_to(states_local, na_pad)
+    if symmetric:
+        everyone, nb = mine, na
+    else:
+        gathered = jax.lax.all_gather(states_local, "rows", axis=0, tiled=True)
+        nb = gathered.shape[0]
+        tile = tile_for(na_pad)
+        everyone = pad_to(gathered, -(-nb // tile) * tile)
+    m, h = cross_counts(
+        mine, everyone, packed=packed, symmetric=symmetric,
+        interpret=interpret,
     )
-    init = (zeros, zeros)
-    (m, h), _ = jax.lax.scan(step, init, (my_blocks, all_blocks))
-
-    m = jax.lax.psum(m, "cols")
-    h = jax.lax.psum(h, "cols")
-    return m, h
-
-
-def _cross_block_counts(mine: jnp.ndarray, everyone: jnp.ndarray):
-    """Rectangular variant of ops.match_matrix.block_counts."""
-    from phylonium_tpu.core.pileup import N_STATES
-    from phylonium_tpu.ops.match_table import MATCH_TABLE
-
-    mt = jnp.asarray(
-        MATCH_TABLE[:N_STATES, :N_STATES].astype(np.float32),
-        dtype=jnp.bfloat16,
-    )
-    valid_a = (mine != INVALID).astype(jnp.bfloat16)
-    valid_b = (everyone != INVALID).astype(jnp.bfloat16)
-    planes = (
-        mine[..., None] == jnp.arange(N_STATES, dtype=mine.dtype)
-    ).astype(jnp.bfloat16)
-    planes_b = (
-        everyone[..., None] == jnp.arange(N_STATES, dtype=everyone.dtype)
-    ).astype(jnp.bfloat16)
-    # matmul table application (per-element gathers pad catastrophically)
-    q = jnp.einsum(
-        "nbt,st->nbs", planes_b, mt, preferred_element_type=jnp.bfloat16
-    )
-
-    matches = jnp.einsum(
-        "nbs,mbs->nm", planes, q, preferred_element_type=jnp.float32
-    )
-    homs = jnp.einsum(
-        "nb,mb->nm", valid_a, valid_b, preferred_element_type=jnp.float32
-    )
-    return matches.astype(jnp.int32), homs.astype(jnp.int32)
+    m, h = m[:na, :nb], h[:na, :nb]
+    return jax.lax.psum(m, "cols"), jax.lax.psum(h, "cols")
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "block", "n_rows", "n_cols", "kernel",
-                     "interpret", "packed"),
+    jax.jit, static_argnames=("mesh", "n_rows", "packed", "interpret"),
 )
-def _sharded_counts(
-    states, mesh, block, n_rows, n_cols, kernel, interpret, packed=False
-):
-    if kernel == "pallas":
-        local = functools.partial(
-            _local_counts_pallas, block=block, interpret=interpret,
-            packed=packed,
-        )
-    else:
-        local = functools.partial(_local_counts, block=block)
+def _sharded_counts(states, mesh, n_rows, packed, interpret=False):
+    local = functools.partial(
+        _local_counts, symmetric=n_rows == 1, packed=packed,
+        interpret=interpret,
+    )
     fn = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=P("rows", "cols"),
         out_specs=(P("rows", None), P("rows", None)),
         # pallas_call out_shapes carry no varying-mesh-axes annotation
-        check_vma=(kernel != "pallas"),
+        check_vma=False,
     )
     return fn(states)
 
 
 def sharded_shape(
-    n: int,
-    length: int,
-    n_rows: int,
-    n_cols: int,
-    kernel: str,
-    block: int | None = None,
-) -> tuple[bool, int, int, int, int]:
+    n: int, length: int, n_rows: int, n_cols: int, packed: bool
+) -> tuple[int, int, int]:
     """Single source of truth for the sharded counting call geometry.
 
-    Returns ``(packed, plen, block, n_pad, l_pad)`` — the nibble-pack
-    decision, packed column count, kernel column block, padded genome
-    count and padded column count — shared by the host-shipped path
-    (:func:`pair_counts_sharded`), the resident-shard streamed path
-    (parallel/stream_mp.py) and the communication account, so the
-    feeder-built shards are bit-compatible with what the collective
-    program expects.
+    Returns ``(plen, n_pad, l_pad)`` — the column count of the shipped
+    layout (half the pileup width when nibble-packed), padded genome
+    count (a whole number of rows per row shard) and padded column
+    count (a whole number of kernel column chunks per column shard) —
+    shared by the host-shipped path (:func:`pair_counts_sharded`), the
+    resident-shard streamed path (parallel/stream_mp.py) and the
+    communication account, so the feeder-built shards are
+    bit-compatible with what the collective program expects.
     """
-    packed = kernel == "pallas"
-    if packed:
-        from phylonium_tpu.ops.pallas_match import (
-            _pad_rows,
-            default_block_cols,
-        )
-
-        plen = -(-max(length, 1) // 2)
-        block = max(128, default_block_cols(_pad_rows(n)) // 2)
-    else:
-        plen = length
-        if block is None:
-            block = 1 << 18
-    block = int(min(block, 1 << (max(plen // n_cols, 1) - 1).bit_length()))
-    block = max(block, 128)
+    plen = -(-max(length, 1) // 2) if packed else max(length, 1)
     n_pad = n + (-n) % n_rows
-    chunk = n_cols * block
-    l_pad = plen + (-plen) % chunk
-    return packed, plen, block, n_pad, l_pad
+    step = n_cols * COL_CHUNK
+    l_pad = -(-plen // step) * step
+    return plen, n_pad, l_pad
 
 
 def gathered_counts(m, h, n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -287,7 +191,6 @@ def comm_account(
     n: int,
     length: int,
     mesh: jax.sharding.Mesh,
-    kernel: str | None = None,
 ) -> dict:
     """Predicted vs compiled per-device communication volume for one
     sharded counting run (no execution — abstract lowering only).
@@ -295,26 +198,20 @@ def comm_account(
     Prediction (module docstring): the only bulk movement is the
     'rows'-axis all_gather of genome-block states for this device's
     column shard — each device RECEIVES (rows-1)/rows * N * Lc bytes,
-    Lc = ceil(L_packed / cols) — plus two [N_loc, N] int32 psums.
+    Lc = ceil(L / cols) — plus two [N_loc, N] int32 psums.
     The measured side parses the compiled HLO's collective
     instructions, so the account reflects what XLA actually emits.
     """
-    if kernel is None:
-        platform = next(iter(mesh.devices.flat)).platform
-        kernel = "pallas" if platform == "tpu" else "xla"
+    from phylonium_tpu.utils.platform import cpu_pinned
+
     n_rows = mesh.shape["rows"]
     n_cols = mesh.shape["cols"]
-    packed, plen, block, n_pad, l_pad = sharded_shape(
-        n, length, n_rows, n_cols, kernel
-    )
+    plen, n_pad, l_pad = sharded_shape(n, length, n_rows, n_cols, False)
 
     sharding = NamedSharding(mesh, P("rows", "cols"))
     spec = jax.ShapeDtypeStruct((n_pad, l_pad), np.uint8, sharding=sharding)
     hlo = (
-        _sharded_counts.lower(
-            spec, mesh, block, n_rows, n_cols, kernel,
-            False, packed,
-        )
+        _sharded_counts.lower(spec, mesh, n_rows, False, cpu_pinned())
         .compile()
         .as_text()
     )
@@ -345,42 +242,27 @@ def comm_account(
 def pair_counts_sharded(
     states: np.ndarray,
     mesh: jax.sharding.Mesh,
-    block: int = 1 << 18,
-    kernel: str | None = None,
-    interpret: bool = False,
+    interpret: bool | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All-pairs (substitutions, homologs) over a ('rows','cols') mesh.
 
-    ``kernel``: 'pallas' (fused kernel per shard; TPU default), 'xla'
-    (einsum path; CPU default), or None for platform auto-detection.
+    ``interpret`` defaults to the CPU pin (the kernel's interpret mode
+    exists only for CPU-pinned runs).
     """
-    if kernel is None:
-        platform = next(iter(mesh.devices.flat)).platform
-        kernel = "pallas" if platform == "tpu" else "xla"
+    if interpret is None:
+        from phylonium_tpu.utils.platform import cpu_pinned
+
+        interpret = cpu_pinned()
     n, length = states.shape
     n_rows = mesh.shape["rows"]
     n_cols = mesh.shape["cols"]
-    packed, plen, block, n_pad, l_pad = sharded_shape(
-        n, length, n_rows, n_cols, kernel, block
-    )
-    if packed:
-        # 4-bit pack before sharding: halves both the host->device
-        # upload and the 'rows'-axis all_gather.  Column sums are
-        # order-invariant, so the split-nibble pairing is exact even
-        # though a packed column's two logical columns land on the
-        # same shard.
-        from phylonium_tpu.ops.pallas_match import _PACKED_PAD, pack_states
-
-        states = pack_states(states, n)
-        fill = _PACKED_PAD
-    else:
-        fill = INVALID
-
-    pad_n = n_pad - n
-    pad_l = l_pad - states.shape[1]
-    if pad_n or pad_l:
+    plen, n_pad, l_pad = sharded_shape(n, length, n_rows, n_cols, False)
+    # state bytes ship as they are: on local cards the transfer costs
+    # less than nibble-packing on the host (PERF.md)
+    if (n_pad, l_pad) != states.shape:
         states = np.pad(
-            states, ((0, pad_n), (0, pad_l)), constant_values=fill
+            states, ((0, n_pad - n), (0, l_pad - length)),
+            constant_values=INVALID,
         )
 
     sharding = NamedSharding(mesh, P("rows", "cols"))
@@ -392,8 +274,5 @@ def pair_counts_sharded(
         )
     else:
         states_dev = jax.device_put(states, sharding)
-    m, h = _sharded_counts(
-        states_dev, mesh, block, n_rows, n_cols, kernel, interpret,
-        packed,
-    )
+    m, h = _sharded_counts(states_dev, mesh, n_rows, False, interpret)
     return gathered_counts(m, h, n)

@@ -7,7 +7,7 @@ index, the same data-parallel-over-queries axis the reference threads
 with OpenMP, src/process.cxx:433) and the resulting homology lists are
 exchanged with two ``process_allgather`` collectives.  Homologies are
 tiny (5 ints each; ~18k records for an eco29-scale panel), so the
-exchange is microseconds of DCN traffic while the mapping work itself
+exchange is microseconds of network traffic while the mapping work itself
 scales ~linearly with the host count.
 
 Determinism: every process would compute identical homologies for any

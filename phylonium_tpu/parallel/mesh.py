@@ -10,8 +10,10 @@ SURVEY.md section 2 "Parallelism & communication"):
   for large N; each shard holds a slice of genomes and computes its row
   block of the matrix against an ``all_gather`` of the others.
 
-On a multi-host slice, put ``rows`` on DCN (counts merge once) and
-``cols`` on ICI.
+Every device reaches every other at the same rate, so the shape follows
+the algorithm: ``cols`` alone moves no panel bytes between devices (one
+int32 psum of the [N, N] counts), ``rows`` trades an all_gather for a
+smaller output block per device.
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
-"""Multi-host initialization and the pod-slice counting entry point.
+"""Multi-process initialization and the all-device counting entry point.
 
-On a multi-host v5e slice, run one process per host under
-``jax.distributed`` (coordinator address via env or args); the global
-mesh spans all hosts.  Recommended layout: ``rows`` on DCN (one
-all_gather of genome-block states + one int32 psum per run — tiny),
-``cols`` on ICI (the bandwidth axis).
+Run one process per host (or per device) under ``jax.distributed``
+(coordinator address, process count and id passed explicitly); the
+global mesh spans every process's devices.  The default layout puts
+one process per ``rows`` block: one all_gather of genome-block states
+plus one int32 psum per run.
 
-Counts are exact integer sums (see ops/pallas_match.py), so any
-host/chip topology returns bit-identical matrices; >0.9 linear pairs/s
-scaling follows from the compare phase being embarrassingly parallel
-over columns with a single [N, N] int32 reduction at the end.
+Counts are exact integer sums (see ops/pallas_match.py), so any device
+topology returns bit-identical matrices; the compare phase is
+embarrassingly parallel over columns with a single [N, N] int32
+reduction at the end.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def initialize_distributed(
 
 def make_pod_mesh(rows: int | None = None) -> jax.sharding.Mesh:
     """('rows','cols') mesh over all global devices; rows defaults to the
-    host count so the rows axis maps to DCN."""
+    process count, so each process's devices share one rows block."""
     from phylonium_tpu.parallel.mesh import make_mesh
 
     devices = jax.devices()
@@ -49,7 +49,8 @@ def make_pod_mesh(rows: int | None = None) -> jax.sharding.Mesh:
 
 
 def pair_counts_pod(states: np.ndarray, rows: int | None = None):
-    """All-pairs counts over every device of the (multi-host) runtime."""
+    """All-pairs counts over every device of the (multi-process)
+    runtime."""
     from phylonium_tpu.parallel.distributed import pair_counts_sharded
 
     mesh = make_pod_mesh(rows)

@@ -1,12 +1,12 @@
-"""Streamed map → pileup → resident-shard pipeline for pod runs.
+"""Streamed map → pileup → resident-shard pipeline for multi-process runs.
 
 The serial multi-process path maps queries round-robin, exchanges every
 homology list, builds the FULL [N, L] pileup on every process, and only
-then ships each device its shard (parallel/distributed.py).  On a real
-pod (one process per chip — the v5e deployment shape) that serializes
-the panel shipment behind the mapping phase and costs every host the
-whole panel in RAM, where the reference's OpenMP compare loop
-(`src/process.cxx:524-549`) has no such wall.
+then ships each device its shard (parallel/distributed.py).  With one
+process per device that serializes the panel shipment behind the
+mapping phase and costs every host the whole panel in RAM, where the
+reference's OpenMP compare loop (`src/process.cxx:524-549`) has no such
+wall.
 
 This module overlaps them: process ``p`` owns the CONTIGUOUS genome
 block its device will hold under the ``('rows','cols')`` sharding, maps
@@ -22,7 +22,7 @@ mesh (tests/test_parallel.py), and the full CLI across 8 real processes
 is byte-compared in tests/test_multiprocess.py.
 
 Engaged by `core/pipeline._should_stream_mp`: multi-process runs with
-one local device per process (the pod topology), plain 'auto' backends,
+one local device per process, plain 'auto' backends,
 and no feature that needs the whole homology set before the pileup.
 Multi-process runs keep collective discipline: any feeder error raises
 (a lone process falling back to the host would desync its peers), the
@@ -39,7 +39,6 @@ import threading
 import numpy as np
 
 from phylonium_tpu.config import RunConfig
-from phylonium_tpu.core.pileup import INVALID
 from phylonium_tpu.core.stream import DEFAULT_GROUP_ROWS
 from phylonium_tpu.index.esa import ESAIndex
 
@@ -57,31 +56,22 @@ class PodShardFeeder:
         import jax
 
         from phylonium_tpu.parallel.distributed import sharded_shape
-        from phylonium_tpu.utils.cache import enable_compile_cache
-        from phylonium_tpu.utils.platform import ensure_device_plugin
+        from phylonium_tpu.utils.platform import device_setup
 
-        ensure_device_plugin()
-        enable_compile_cache()
+        device_setup()
         self.n = n
         self.ref_len = ref_len
         self.mesh = mesh
         self.interpret = interpret
         self.n_rows = mesh.shape["rows"]
         self.n_cols = mesh.shape["cols"]
-        platform = next(iter(mesh.devices.flat)).platform
-        self.kernel = "pallas" if platform == "tpu" else "xla"
-        (
-            self.packed,
-            self.plen,
-            self.block,
-            self.n_pad,
-            self.l_pad,
-        ) = sharded_shape(n, ref_len, self.n_rows, self.n_cols, self.kernel)
+        self.plen, self.n_pad, self.l_pad = sharded_shape(
+            n, ref_len, self.n_rows, self.n_cols, True
+        )
         self.rows_per_block = self.n_pad // self.n_rows
         pid = jax.process_index()
         self.row_lo = pid * self.rows_per_block
         self.row_hi = min(self.row_lo + self.rows_per_block, n)
-        self._device = jax.local_devices()[0]
         self._rows_fed = 0
         self._chunks: list = []
         self._error: BaseException | None = None
@@ -94,35 +84,17 @@ class PodShardFeeder:
     # -- shipping ---------------------------------------------------------
 
     def _ship(self, queries: list, homologies: list, pad_rows: int):
-        """Build + place one group's rows on the local device.
-
-        TPU (packed): 2-bit queries + intervals, fused on-device build
-        in the split-nibble layout (ops/pileup_device).  Other
-        platforms (xla kernel): host-built INVALID-padded byte rows,
-        one device_put — identical to the serial path's padding.
-        """
-        import jax
-
-        if self.packed:
-            from phylonium_tpu.ops.pileup_device import (
-                build_packed_rows_device,
-            )
-
-            return build_packed_rows_device(
-                queries, homologies, self.ref_len, self.plen,
-                self.l_pad, pad_rows=pad_rows,
-            )
-        from phylonium_tpu.native import build_pileup_native
-
-        rows = np.full(
-            (len(queries) + pad_rows, self.l_pad), INVALID, np.uint8
+        """Build + place one group's rows on the local device: 2-bit
+        queries + intervals, fused on-device build in the split-nibble
+        layout (ops/pileup_device)."""
+        from phylonium_tpu.ops.pileup_device import (
+            build_packed_rows_device,
         )
-        if queries:
-            # contiguous scratch: the native builder writes whole rows
-            tmp = np.empty((len(queries), self.ref_len), np.uint8)
-            build_pileup_native(queries, homologies, self.ref_len, out=tmp)
-            rows[: len(queries), : self.ref_len] = tmp
-        return jax.device_put(rows, self._device)
+
+        return build_packed_rows_device(
+            queries, homologies, self.ref_len, self.plen,
+            self.l_pad, pad_rows=pad_rows,
+        )
 
     def _drain(self) -> None:
         while True:
@@ -158,7 +130,8 @@ class PodShardFeeder:
         import jax
         from jax.sharding import NamedSharding, PartitionSpec as P
 
-        from phylonium_tpu.ops.pallas_match import _concat_rows
+        from phylonium_tpu.ops.device_counts import concat_pad
+        from phylonium_tpu.ops.shapes import _PACKED_PAD
         from phylonium_tpu.parallel.distributed import (
             _sharded_counts,
             gathered_counts,
@@ -178,16 +151,17 @@ class PodShardFeeder:
                 f"pod feeder got {fed} rows for block "
                 f"[{self.row_lo}, {self.row_hi})"
             )
-        chunks = tuple(self._chunks)
-        local = chunks[0] if len(chunks) == 1 else _concat_rows(chunks)
+        local = concat_pad(
+            tuple(self._chunks), self.rows_per_block, self.l_pad,
+            _PACKED_PAD,
+        )
         global_arr = jax.make_array_from_single_device_arrays(
             (self.n_pad, self.l_pad),
             NamedSharding(self.mesh, P("rows", "cols")),
             [local],
         )
         m, h = _sharded_counts(
-            global_arr, self.mesh, self.block, self.n_rows, self.n_cols,
-            self.kernel, self.interpret, self.packed,
+            global_arr, self.mesh, self.n_rows, True, self.interpret
         )
         return gathered_counts(m, h, self.n)
 

@@ -5,8 +5,7 @@ raw bytes back to back.  The header carries ``arrays`` specs as
 ``[dtype_str, shape]`` pairs so the receiver reconstructs views without
 pickling (no code execution on received bytes; a version/magic check
 rejects foreign traffic).  Big buffers move as single ``sendall``/
-``recv_into`` calls — a local unix socket does ~GB/s, two orders of
-magnitude above the tunnel this protocol exists to feed.
+``recv_into`` calls — a local unix socket does ~GB/s.
 """
 
 from __future__ import annotations

@@ -86,7 +86,7 @@ def test_auto_prefers_host_static_without_link(calfile):
 
 def test_auto_prefers_host_uses_measured_link(calfile):
     """With a measured link, the serial dispatch compares predicted
-    host compare time against predicted ship+tail time."""
+    host compare time against predicted ship time."""
     from phylonium_tpu.core.pipeline import LAST_RUN_INFO, _auto_prefers_host
 
     cfg = RunConfig()
@@ -125,8 +125,8 @@ def test_stream_predicts_win(calfile):
     assert _stream_predicts_win(600, 1_000_000, cfg) is None  # no link
     # 600 x 1 Mbp: work 179.7 Gbp.  Host at 30 Gbp/s -> ~6 s compare.
     # 2-bit panel = 150 MB; at 30 MB/s that's 5 s, hidden under a
-    # 0.6 Gbp / 0.2 Gbp/s = 3 s map window -> ~2 s unhidden + 1.5 tail
-    # < 6 s: stream.
+    # 0.6 Gbp / 0.2 Gbp/s = 3 s map window -> ~2 s unhidden < 6 s:
+    # stream.
     calibration.record("link_mb_s", 30.0)
     calibration.record("host_compare_gbps", 30.0)
     assert _stream_predicts_win(600, 1_000_000, cfg) is True
@@ -138,16 +138,17 @@ def test_stream_predicts_win(calfile):
 
 def test_stream_predicts_win_devd(calfile, monkeypatch):
     """With the device server on, shipped misses are the next run's
-    cache hits: the gate ignores the link and only asks whether the
-    host compare is slow enough for the device to beat at all."""
-    from phylonium_tpu.core.pipeline import _stream_predicts_win
+    cache hits and the devd race leg costs the host leg nothing: the
+    gate ignores the link and lets the race decide every panel."""
+    from phylonium_tpu.core.pipeline import LAST_RUN_INFO, _stream_predicts_win
 
     monkeypatch.setenv("PHYLONIUM_TPU_DEVD", "1")
     calibration.record("link_mb_s", 0.5)  # collapsed link: irrelevant
     calibration.record("host_compare_gbps", 30.0)
     cfg = RunConfig()
     assert _stream_predicts_win(600, 1_000_000, cfg) is True  # ~6 s host
-    assert _stream_predicts_win(29, 5_000_000, cfg) is False  # ~0.07 s
+    assert _stream_predicts_win(29, 5_000_000, cfg) is True  # ~0.07 s
+    assert LAST_RUN_INFO["stream_model"]["devd"] is True
 
 
 def test_should_stream_follows_link_prediction(calfile, monkeypatch):
@@ -168,7 +169,7 @@ def test_should_stream_follows_link_prediction(calfile, monkeypatch):
     monkeypatch.setattr(plat, "cpu_pinned", lambda: False)
     # the suite's virtual 8-device CPU mesh would divert to the mesh
     # path; this test is about the single-device link gate
-    monkeypatch.setattr(plat, "backends_initialized", lambda: False)
+    monkeypatch.setattr(pl, "_device_count", lambda: 1)
     cfg = RunConfig()
     # measured win at 600 x 1 Mbp (static threshold: 179 Gbp >= 128
     # would stream anyway, so use 200 x 1 Mbp = 19.9 Gbp < 128):

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 from phylonium_tpu.config import RunConfig
-from phylonium_tpu.core.pipeline import _race_host, pair_counts
+from phylonium_tpu.core.pipeline import LAST_RUN_INFO, _race_host, pair_counts
 from phylonium_tpu.ops.bitplane_host import (
     pair_counts_bitplanes,
     pair_counts_host,
@@ -80,6 +80,8 @@ def test_race_device_wins(states):
     expected = pair_counts_numpy(states)
     got = _race_host(states, lambda: expected)
     assert got[0] is expected[0]
+    assert LAST_RUN_INFO["device_leg"] == {"outcome": "won"}
+    assert LAST_RUN_INFO["compare_carrier"] == "device"
 
 
 def test_race_host_wins(states):
@@ -95,15 +97,26 @@ def test_race_host_wins(states):
     release.set()
     s2, h2 = pair_counts_numpy(states)
     assert (subs == s2).all() and (homs == h2).all()
+    assert LAST_RUN_INFO["device_leg"] == {"outcome": "lost"}
+    assert LAST_RUN_INFO["compare_carrier"] == "host"
 
 
-def test_race_device_failure_falls_back_to_host(states):
+def test_race_device_failure_falls_back_to_host(states, capsys):
+    """In the auto race a device error never fails the run: the host
+    result stands, the error is recorded and warned on stderr."""
+
     def broken_device():
-        raise RuntimeError("compile service down")
+        raise RuntimeError("compile failed\nsecond line")
 
     subs, homs = _race_host(states, broken_device)
     s2, h2 = pair_counts_numpy(states)
     assert (subs == s2).all() and (homs == h2).all()
+    leg = LAST_RUN_INFO["device_leg"]
+    assert leg["outcome"] == "error"
+    assert leg["error"] == "RuntimeError: compile failed"
+    assert "device leg failed (RuntimeError: compile failed)" in (
+        capsys.readouterr().err
+    )
 
 
 def test_dispatch_host_backend(states):
@@ -217,7 +230,7 @@ def test_hybrid_rejects_oversized_single_query(monkeypatch):
 
 def test_explicit_pallas_on_cpu_runs_interpret(states):
     """--count-backend=pallas on a CPU-pinned run must execute the
-    interpret kernel (bit-identical), not crash with Mosaic's
+    interpret kernel (bit-identical), not crash with Pallas's
     'Only interpret mode is supported on CPU backend'."""
     import numpy as np
 

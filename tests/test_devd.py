@@ -353,50 +353,32 @@ def test_cancel_keeps_shipper_alive_under_drain(rng, devd_env, monkeypatch):
     assert shipper2.drain(30.0) is True  # panel still parks fully
 
 
-def test_poisoned_daemon_tells_client_and_exits(tmp_path, monkeypatch):
-    """An unhealable device-session error (libtpu version mismatch after
-    a terminal restart — observed in production) must not leave a
-    zombie daemon answering every op with the same error until its idle
-    timeout: the daemon marks itself poisoned, the client retires it,
-    and the daemon process exits so the next spawn re-registers."""
-    from phylonium_tpu.serve.client import DevdClient, DevdError
+def test_devd_off_by_default(monkeypatch):
+    """The CLI process opens the card itself unless PHYLONIUM_TPU_DEVD=1
+    engages the device server."""
+    from phylonium_tpu.serve.client import devd_enabled
 
-    sock = str(tmp_path / "devd.sock")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + ":" + env.get("PYTHONPATH", "")
-    env["PHYLONIUM_TPU_DEVD_SOCK"] = sock
-    env["PHYLONIUM_TPU_PLATFORM"] = "cpu"
-    env["PHYLONIUM_TPU_DEVD_INJECT"] = "poison"
-    log = open(tmp_path / "devd.log", "wb")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "phylonium_tpu.serve"],
-        stdout=log, stderr=log, env=env,
-    )
-    try:
-        deadline = time.time() + 30
-        while time.time() < deadline and not os.path.exists(sock):
-            assert proc.poll() is None, "daemon died before serving"
-            time.sleep(0.1)
-        monkeypatch.setenv("PHYLONIUM_TPU_DEVD_SOCK", sock)
-        c = DevdClient(spawn=False)
-        assert c.ping(timeout=30.0)["poisoned"] is None
-        with pytest.raises(DevdError, match="libtpu version mismatch"):
-            c.request({"op": "probe", "mb": 1}, timeout=30.0)
-        # a later op on the same connection raises too (poison marker,
-        # or a broken pipe when the daemon already exited)
-        with pytest.raises(DevdError):
-            c.request({"op": "qhave", "run": "r", "gidx": 0, "key": "k"})
-        c.close()
-        # the client retired the daemon (SIGTERM via its pidfile); if
-        # the client had died first, the daemon exits on its own within
-        # one accept-timeout tick (rc 0)
-        assert proc.wait(timeout=30) in (0, -signal.SIGTERM)
-        assert not os.path.exists(sock + ".pid")
-    finally:
-        if proc.poll() is None:
-            proc.send_signal(signal.SIGTERM)
-            proc.wait(timeout=10)
-        log.close()
+    monkeypatch.delenv("PHYLONIUM_TPU_DEVD", raising=False)
+    assert devd_enabled() is False
+    monkeypatch.setenv("PHYLONIUM_TPU_DEVD", "0")
+    assert devd_enabled() is False
+    monkeypatch.setenv("PHYLONIUM_TPU_DEVD", "1")
+    assert devd_enabled() is True
+
+
+def test_devd_engaged_explicit_device_backend_refused(
+    tmp_path, monkeypatch, capsys
+):
+    """With the device server engaged the server owns the card: an
+    explicit in-process device path exits 1 with a clear error instead
+    of opening the card from a second process."""
+    from phylonium_tpu.cli import main
+
+    monkeypatch.setenv("PHYLONIUM_TPU_DEVD", "1")
+    files = _write_panel(tmp_path, 3, 1500, seed=2)
+    rc = main(["--progress=never", "--count-backend=device", *files])
+    assert rc == 1
+    assert "device server" in capsys.readouterr().err
 
 
 def _write_panel(tmp_path, n, length, seed):
@@ -439,10 +421,29 @@ def test_devd_cli_byte_identical(tmp_path, devd_env, monkeypatch):
     assert streamed == serial
 
 
+def test_devd_cli_process_never_imports_jax(tmp_path, devd_env):
+    """One process per card: with the device server engaged, the CLI
+    process itself never imports jax (so it cannot open the card) —
+    streaming, the compare race and the output all go through the
+    server (exit code 70 flags a jax import)."""
+    files = _write_panel(tmp_path, 7, 2200, seed=41)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + ":" + env.get("PYTHONPATH", "")
+    env["PHYLONIUM_TPU_STREAM"] = "force"
+    env["PHYLONIUM_TPU_STREAM_GROUP"] = "3"
+    env["PHYLONIUM_TPU_EXPECT_NO_JAX"] = "1"
+    r = subprocess.run(
+        [sys.executable, "-m", "phylonium_tpu", "--progress=never", *files],
+        capture_output=True, timeout=300, env=env,
+    )
+    assert r.returncode == 0, r.stderr.decode()[-1500:]
+    assert r.stdout.startswith(b"7\n")
+
+
 def test_devd_cli_drain_seeds_and_prewarms(tmp_path, devd_env, monkeypatch):
     """A drained (cold seeding) CLI run must park the whole panel in the
     daemon AND sync-prewarm its program family before exiting — the run
-    report carries both; a second run is then all cache hits."""
+    report carries both; a second drained run is then all cache hits."""
     import phylonium_tpu.core.pipeline as pl
     from phylonium_tpu.cli import main
 
@@ -464,7 +465,9 @@ def test_devd_cli_drain_seeds_and_prewarms(tmp_path, devd_env, monkeypatch):
     ship = pl.LAST_RUN_INFO.get("early_ship")
     assert ship is not None and ship["groups"] == 2
 
-    monkeypatch.delenv("PHYLONIUM_TPU_SHIP_DRAIN")
+    # the second run drains too: on a tiny panel the host leg can finish
+    # before the shipper thread has looked a group up, and the drain
+    # makes the run wait for every lookup before it reports
     out2 = io.StringIO()
     with contextlib.redirect_stdout(out2):
         rc2 = main(["--progress=never", *files])

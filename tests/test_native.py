@@ -1,5 +1,7 @@
 """Native C++ backend parity with the numpy oracles."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -197,3 +199,63 @@ def test_interleaved_mapper_matches_scalar(rng, monkeypatch):
              h.index_query, h.length)
             for h in i_h
         ]
+
+
+def test_gomp_link_args_fall_back_to_the_system_runtime(tmp_path):
+    """A compiler that knows no libgomp of its own links the system's
+    OpenMP runtime by soname."""
+    import ctypes.util
+
+    from phylonium_tpu.native.build import _gomp_link_args
+
+    fake = tmp_path / "cxx"
+    fake.write_text("#!/bin/sh\necho libgomp.so\n")
+    fake.chmod(0o755)
+    system = ctypes.util.find_library("gomp")
+    want = [f"-l:{system}"] if system else ["-lgomp"]
+    assert _gomp_link_args(str(fake)) == want
+    assert _gomp_link_args(str(tmp_path / "missing")) == want
+
+
+def test_build_links_openmp_and_leaves_no_temporaries(tmp_path, monkeypatch):
+    """Compile and link run as two steps under process-private names;
+    only the finished library is left in the build directory."""
+    import ctypes
+
+    import phylonium_tpu.native.build as nb
+
+    monkeypatch.setattr(nb, "BUILD_DIR", tmp_path)
+    path = nb.build()
+    assert [p.name for p in tmp_path.iterdir()] == [nb.LIB_NAME]
+    lib = ctypes.CDLL(str(path))
+    lib.phy_num_procs.restype = ctypes.c_int
+    # the OpenMP runtime answers (a build without it reports 1)
+    assert lib.phy_num_procs() == len(os.sched_getaffinity(0))
+
+
+def test_concurrent_threads_build_one_working_library(tmp_path, monkeypatch):
+    """Threads of one process that all find the library missing build
+    it once, and every one of them gets a complete library."""
+    import ctypes
+    import threading
+
+    import phylonium_tpu.native.build as nb
+
+    monkeypatch.setattr(nb, "BUILD_DIR", tmp_path)
+    paths, errors = [], []
+
+    def worker():
+        try:
+            paths.append(nb.ensure_built())
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(set(paths)) == 1
+    assert [p.name for p in tmp_path.iterdir()] == [nb.LIB_NAME]
+    assert hasattr(ctypes.CDLL(str(paths[0])), "phy_index_build")

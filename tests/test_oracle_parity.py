@@ -6,7 +6,7 @@ produces byte-identical stdout on a spectrum of inputs: simf-simulated
 pairs and families, multi-contig draft assemblies, inversions, all
 --distance modes, --complete-deletion, -p refpos files, -r, and -2.
 
-This is the strongest correctness guarantee in the suite: the TPU
+This is the strongest correctness guarantee in the suite: the
 pipeline reproduces the reference's PHYLIP matrices exactly, matching
 the BASELINE.json requirement.
 """
@@ -48,7 +48,7 @@ def run_oracle(args, cwd):
 def run_ours(args, cwd):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    # keep parity subprocesses off the TPU: CPU XLA path, fast compiles
+    # keep parity subprocesses on the CPU: fast, and no card needed
     env["PHYLONIUM_TPU_PLATFORM"] = "cpu"
     r = subprocess.run(
         [sys.executable, "-m", "phylonium_tpu", *args],

@@ -8,7 +8,8 @@ import jax
 import numpy as np
 import pytest
 
-from phylonium_tpu.ops.match_matrix import pair_counts_device
+from phylonium_tpu.ops.device_counts import pair_counts_states
+from phylonium_tpu.ops.match_table import pair_counts_numpy
 from phylonium_tpu.parallel.distributed import pair_counts_sharded
 from phylonium_tpu.parallel.mesh import make_mesh
 
@@ -33,8 +34,8 @@ def test_sharded_equals_single(states, shape):
         mesh = make_mesh((1, 1), devices=jax.devices()[:1])
     else:
         mesh = make_mesh(shape)
-    s_ref, h_ref = pair_counts_device(states, block=512)
-    s, h = pair_counts_sharded(states, mesh, block=256)
+    s_ref, h_ref = pair_counts_numpy(states)
+    s, h = pair_counts_sharded(states, mesh)
     assert np.array_equal(s, s_ref)
     assert np.array_equal(h, h_ref)
 
@@ -43,18 +44,19 @@ def test_ragged_padding(states):
     # N not divisible by rows, L not divisible by cols*block
     mesh = make_mesh((4, 2))
     odd = states[:5, :4999]
-    s_ref, h_ref = pair_counts_device(odd, block=512)
-    s, h = pair_counts_sharded(odd, mesh, block=128)
+    s_ref, h_ref = pair_counts_numpy(odd)
+    s, h = pair_counts_sharded(odd, mesh)
     assert np.array_equal(s, s_ref)
     assert np.array_equal(h, h_ref)
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
 def test_sharded_pallas_kernel_equals_single(states, shape):
-    """The fused-kernel sharded path (interpret mode on CPU)."""
+    """The fused-kernel shard body (interpret mode on CPU) against the
+    single-device entry point."""
     mesh = make_mesh(shape)
-    s_ref, h_ref = pair_counts_device(states, block=512)
-    s, h = pair_counts_sharded(states, mesh, kernel="pallas", interpret=True)
+    s_ref, h_ref = pair_counts_states(states, interpret=True)
+    s, h = pair_counts_sharded(states, mesh, interpret=True)
     assert np.array_equal(s, s_ref)
     assert np.array_equal(h, h_ref)
 
@@ -65,6 +67,6 @@ def test_pod_mesh_helpers(states):
     mesh = make_pod_mesh()
     assert mesh.shape["rows"] * mesh.shape["cols"] == 8
     s, h = pair_counts_pod(states)
-    s_ref, h_ref = pair_counts_device(states, block=512)
+    s_ref, h_ref = pair_counts_numpy(states)
     assert np.array_equal(s, s_ref)
     assert np.array_equal(h, h_ref)

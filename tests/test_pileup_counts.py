@@ -18,7 +18,7 @@ from phylonium_tpu.core.filter import filter_overlaps_max
 from phylonium_tpu.core.pileup import build_pileup
 from phylonium_tpu.data.sequence import Sequence, gc_content, revcomp
 from phylonium_tpu.index.esa import ESAIndex
-from phylonium_tpu.ops.match_matrix import pair_counts_device
+from phylonium_tpu.ops.device_counts import pair_counts_states
 from phylonium_tpu.ops.match_table import MATCH_TABLE, pair_counts_numpy
 from tests.conftest import mutate, random_genome
 
@@ -85,7 +85,7 @@ def test_pileup_equals_oracle(seed):
     assert np.array_equal(s1, subs_o)
     assert np.array_equal(h1, homs_o)
 
-    s2, h2 = pair_counts_device(states, block=512)
+    s2, h2 = pair_counts_states(states, interpret=True)
     assert np.array_equal(s2, subs_o)
     assert np.array_equal(h2, homs_o)
 
@@ -95,7 +95,7 @@ def test_device_path_odd_sizes():
     rng = np.random.default_rng(7)
     states = rng.integers(0, 11, size=(3, 1037)).astype(np.uint8)
     s1, h1 = pair_counts_numpy(states)
-    s2, h2 = pair_counts_device(states, block=256)
+    s2, h2 = pair_counts_states(states, interpret=True)
     assert np.array_equal(s1, s2)
     assert np.array_equal(h1, h2)
 

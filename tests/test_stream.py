@@ -89,7 +89,8 @@ def test_feeder_flat_matches_oracle(rng, n, length, groups):
 
 
 def test_feeder_blocked_matches_oracle(rng):
-    """n > 512 takes the row-blocked panel path on shipped chunks."""
+    """A panel above the small-tile bound counts with the large output
+    tile on shipped chunks."""
     n, length = 530, 600
     queries, homologies = _panel(rng, n, length)
     subs, homs = _feed_all(
@@ -104,7 +105,7 @@ def test_feeder_blocked_matches_oracle(rng):
 def test_build_packed_rows_matches_host_pack(rng):
     """The fused build-and-nibble-pack program emits exactly
     pack_states(host rows) for every padding case."""
-    from phylonium_tpu.ops.pallas_match import pack_states
+    from phylonium_tpu.ops.shapes import pack_states
     from phylonium_tpu.ops.pileup_device import build_packed_rows_device
 
     for ref_len, width_pad, pad_rows in [
@@ -128,7 +129,7 @@ def test_build_packed_window_alignments(rng):
     """The windowed 16-column fetch must be exact for every interval
     start/end alignment mod 16: dense tilings of tiny (1..40 col)
     forward/reverse intervals, back to back, plus separators."""
-    from phylonium_tpu.ops.pallas_match import pack_states
+    from phylonium_tpu.ops.shapes import pack_states
     from phylonium_tpu.ops.pileup_device import build_packed_rows_device
 
     ref_len = 640
@@ -166,14 +167,14 @@ def test_feeder_error_surfaces_in_finish(rng, monkeypatch):
     import phylonium_tpu.ops.pileup_device as pd
 
     def boom(*a, **k):
-        raise RuntimeError("ABORTED: TPU backend error (injected)")
+        raise RuntimeError("injected device fault")
 
     queries, homologies = _panel(rng, 8, 256)
     # patch before construction: the worker binds the builder at start
     monkeypatch.setattr(pd, "build_packed_rows_device", boom)
     feeder = DeviceRowFeeder(8, 256, interpret=True)
     feeder.feed(queries, homologies)
-    with pytest.raises(RuntimeError, match="ABORTED"):
+    with pytest.raises(RuntimeError, match="injected device fault"):
         feeder.finish()
 
 
@@ -218,8 +219,9 @@ def test_streamed_cli_byte_identical(tmp_path, monkeypatch):
 
 
 def test_streamed_cli_survives_feeder_abort(tmp_path, monkeypatch, capsys):
-    """A transient abort inside the feeder loses the device leg of the
-    race, not the run: rc 0 and byte-identical output."""
+    """A device error inside the feeder loses the device leg of the auto
+    race, not the run: rc 0, byte-identical output, and the error is
+    recorded as the device leg's outcome and warned on stderr."""
     import phylonium_tpu.core.stream as st
     from phylonium_tpu.cli import main
 
@@ -237,15 +239,20 @@ def test_streamed_cli_survives_feeder_abort(tmp_path, monkeypatch, capsys):
 
     class BoomFeeder(st.DeviceRowFeeder):
         def finish(self, progress=None):
-            raise RuntimeError("ABORTED: TPU backend error (injected)")
+            raise RuntimeError("injected device fault")
 
     monkeypatch.setattr(st, "DeviceRowFeeder", BoomFeeder)
-    import phylonium_tpu.core.pipeline  # noqa: F401 — imports from st at call time
+    import phylonium_tpu.core.pipeline as pl
 
+    capsys.readouterr()
     monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "force")
     rc1, streamed = run()
     assert rc1 == 0
     assert streamed == serial
+    leg = pl.LAST_RUN_INFO["device_leg"]
+    assert leg["outcome"] == "error"
+    assert "injected device fault" in leg["error"]
+    assert "injected device fault" in capsys.readouterr().err
 
 
 def test_should_stream_conditions(monkeypatch):
@@ -279,31 +286,33 @@ def test_should_stream_conditions(monkeypatch):
     assert not _should_stream(10, 1000, RunConfig(), ref)
 
 
-def test_lagging_feeder_skips_device_race(tmp_path, monkeypatch, capsys):
-    """When shipping verifiably lagged during mapping, the compare goes
-    straight to the host path (no device race to slow it down)."""
+def test_lagging_feeder_still_races(tmp_path, monkeypatch):
+    """However little of the panel shipped during mapping, the streamed
+    compare races the device leg (on a local card the rest ships in
+    moments); the leg's outcome lands in the run report."""
+    import phylonium_tpu.core.pipeline as pl
     import phylonium_tpu.core.stream as st
     from phylonium_tpu.cli import main
 
     files = _write_panel(tmp_path, 5, 2200, seed=21)
+    finished = []
 
     class LaggyFeeder(st.DeviceRowFeeder):
         def shipped_fraction(self):
             return 0.0
 
-        def finish(self, progress=None):  # pragma: no cover
-            raise AssertionError("device leg must not run")
+        def finish(self, progress=None):
+            finished.append(True)
+            return super().finish(progress)
 
     monkeypatch.setattr(st, "DeviceRowFeeder", LaggyFeeder)
     monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "force")
-    monkeypatch.setenv("PHYLONIUM_TPU_DEBUG", "1")
-    import contextlib, io
-
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = main(["--progress=never", *files])
     assert rc == 0
-    assert "without a device race" in capsys.readouterr().err
+    assert finished == [True]
+    assert pl.LAST_RUN_INFO["device_leg"]["outcome"] in ("won", "lost")
     monkeypatch.setenv("PHYLONIUM_TPU_STREAM", "0")
     out2 = io.StringIO()
     with contextlib.redirect_stdout(out2):
@@ -311,51 +320,24 @@ def test_lagging_feeder_skips_device_race(tmp_path, monkeypatch, capsys):
     assert out.getvalue() == out2.getvalue()
 
 
-def test_late_backend_hands_off_to_mesh(tmp_path, monkeypatch, capsys):
-    """docs/ROUND3.md known-limitation closed: when the backend
-    handshake completes only after _should_stream already engaged the
-    streamed single-device plan, the pipeline re-checks the device
-    count, cancels the feeder (its finish must never run), and hands
-    the compare to the mesh path — byte-identically."""
-    import jax
-
+def test_multi_device_runtime_never_streams(monkeypatch):
+    """The stream decision reads the real device count: a runtime with
+    more than one device takes the mesh path, never the single-device
+    feeder."""
     import phylonium_tpu.core.pipeline as pl
-    import phylonium_tpu.core.stream as st
-    from phylonium_tpu.cli import main
+    import phylonium_tpu.utils.platform as plat
+    from phylonium_tpu.config import RunConfig
 
-    files = _write_panel(tmp_path, 6, 2400, seed=5)
-
-    def run(args):
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = main(["--progress=never", *args, *files])
-        return rc, out.getvalue()
+    class FakeRef:
+        backend_name = "native"
 
     monkeypatch.delenv("PHYLONIUM_TPU_STREAM", raising=False)
-    rc0, serial = run([])
-    assert rc0 == 0
-
-    # the "late" half: the backend IS initialized (this call completes
-    # the handshake) with a multi-device runtime...
-    assert len(jax.devices()) > 1
-
-    class NoFinishFeeder(st.DeviceRowFeeder):
-        def finish(self, progress=None):  # pragma: no cover
-            raise AssertionError(
-                "feeder.finish must not run after the mesh handoff"
-            )
-
-    monkeypatch.setattr(st, "DeviceRowFeeder", NoFinishFeeder)
-    # ...but the stream decision was made before it (simulated by
-    # forcing the decision the pre-handshake state would have produced)
-    monkeypatch.setattr(
-        pl, "_should_stream", lambda n, ref_len, cfg, ref: True
-    )
-    rc1, streamed = run(["--mesh", "2,4"])
-    assert rc1 == 0
-    assert streamed == serial
-    assert pl.LAST_RUN_INFO.get("stream_handoff") == "mesh"
-    assert pl.LAST_RUN_INFO.get("compare_carrier") == "mesh"
+    monkeypatch.setattr(plat, "cpu_pinned", lambda: False)
+    cfg = RunConfig(auto_device_min_gbp=0.0)
+    monkeypatch.setattr(pl, "_device_count", lambda: 8)
+    assert not pl._should_stream(100, 1000, cfg, FakeRef())
+    monkeypatch.setattr(pl, "_device_count", lambda: 1)
+    assert pl._should_stream(100, 1000, cfg, FakeRef())
 
 
 def test_query_shipper_groups_bit_identical(rng, monkeypatch):

@@ -605,10 +605,9 @@ def micro_steady(args: dict) -> dict:
 
     from phylonium_tpu.ops.device_counts import panel_counts, panel_shape
     from phylonium_tpu.ops.shapes import pack_states, packed_width
-    from phylonium_tpu.utils.platform import cpu_pinned, device_setup
+    from phylonium_tpu.utils.platform import device_setup
 
     device_setup()
-    interpret = cpu_pinned()
     states = np.load(args["npy"], mmap_mode="r")
     n, length = states.shape
     n_pad, width = panel_shape(n, packed_width(length))
@@ -625,7 +624,7 @@ def micro_steady(args: dict) -> dict:
             s = lax.dynamic_update_slice(
                 s, (acc[:1, :1] % 11).astype(jnp.uint8), (0, 0)
             )
-            return (acc + panel_counts(s, True, interpret)[0], s)
+            return (acc + panel_counts(s, True)[0], s)
 
         acc0 = jnp.zeros((states.shape[0], states.shape[0]), jnp.int32)
         out, _ = lax.fori_loop(0, reps, body, (acc0, states))

@@ -17,10 +17,15 @@ Phases (one card):
    byte-identical to ``--count-backend host``, carrier ``device``;
 3. default path: a seeded 600 x 1 Mbp panel with plain flags (the
    streamed feeder above the work gate), byte-identical to host, and
-   the raced device leg did not fail;
+   the raced device leg did not fail; then the streamed feeder's own
+   counts of that panel (the device-built packed panel, whichever leg
+   wins the race) exactly equal the host AVX2 kernel's;
 4. kernel vs references: the device entry point's exact counts against
    the host AVX2 kernel at 29 x 5 Mbp, 116 x 5 Mbp, 600 x 1 Mbp and
-   1000 x 1 Mbp, and against the numpy oracle at 8 x 1 Mbp.
+   1000 x 1 Mbp (packed), against the numpy oracle at 8 x 1 Mbp, and
+   on state bytes at 450 x 5 Mbp (2.7 GB padded: launched in column
+   ranges) and 900 x 5 Mbp (5.4 GB: 64-bit offsets; every pair among
+   32 sampled rows, the first and last included).
 
 This process never imports jax: every phase runs in a subprocess of
 its own, one at a time, and after each one ``nvidia-smi`` must show no
@@ -54,10 +59,15 @@ SIZES = {
     "eco29": ((29, 5_000_000), (5, 20_000)),
     "auto600": ((600, 1_000_000), (12, 6_000)),
     "four": ((1000, 1_000_000), (12, 6_000)),
+    # (genomes, length, layout, rows compared: None for all)
     "kernels": (
-        [(8, 1_000_000), (29, 5_000_000), (116, 5_000_000),
-         (600, 1_000_000), (1000, 1_000_000)],
-        [(8, 3_000), (29, 3_000), (70, 2_000)],
+        [(8, 1_000_000, "packed", None), (29, 5_000_000, "packed", None),
+         (116, 5_000_000, "packed", None), (600, 1_000_000, "packed", None),
+         (1000, 1_000_000, "packed", None),
+         (450, 5_000_000, "states", None), (900, 5_000_000, "states", 32)],
+        [(8, 3_000, "packed", None), (29, 3_000, "packed", None),
+         (70, 2_000, "packed", None), (40, 2_000, "states", None),
+         (70, 2_000, "states", 12)],
     ),
 }
 
@@ -279,43 +289,106 @@ def phase_auto600(rehearse):
     return res
 
 
+def phase_stream600(rehearse):
+    """The streamed path's device leg on its own: phase 3's panel
+    mapped, piled up and fed group by group as the CLI's default run
+    does (core/pipeline.process), then the feeder's device counts
+    compared exactly with the host AVX2 kernel on the same pileup."""
+    import numpy as np
+
+    from phylonium_tpu.config import RunConfig
+    from phylonium_tpu.core.anchor_stats import min_anchor_length
+    from phylonium_tpu.core.reference_pick import pick_first_pass
+    from phylonium_tpu.core.stream import DeviceRowFeeder, map_pileup_streamed
+    from phylonium_tpu.data.sequence import gc_content, join
+    from phylonium_tpu.index.esa import ESAIndex
+    from phylonium_tpu.io.fasta import read_genome
+    from phylonium_tpu.ops.bitplane_host import pair_counts_host
+
+    n, length = size("auto600", rehearse)
+    files = make_panel(os.path.join(WORK, f"panel_{n}x{length}"), n,
+                       length, 600)
+    cfg = RunConfig(progress="never")
+    queries = [join(read_genome(f)) for f in files]
+    subject = queries[pick_first_pass(queries)]
+    ref = ESAIndex(subject, backend=cfg.esa_backend)
+    gc = gc_content(subject.nucl)
+    threshold = min_anchor_length(cfg.anchor_p_value, gc, ref.size)
+    t0 = time.time()
+    feeder = DeviceRowFeeder(n, len(subject))
+    _, states = map_pileup_streamed(
+        ref, threshold, queries, cfg, feeder,
+        group_rows=4 if rehearse else None,
+    )
+    t_map = time.time() - t0
+    t0 = time.time()
+    subs, homs = feeder.finish()
+    t_dev = time.time() - t0
+    ref_subs, ref_homs = pair_counts_host(states)
+    if not (np.array_equal(subs, ref_subs) and np.array_equal(homs, ref_homs)):
+        raise AssertionError("stream600: feeder counts differ from host")
+    log(f"stream600: feeder counts exact vs host_avx2 (map+pileup+feed "
+        f"{t_map:.2f}s, finish {t_dev:.2f}s)")
+    return {"panel": [n, length], "exact_vs": "host_avx2",
+            "map_pileup_feed_s": t_map, "finish_s": t_dev}
+
+
 def phase_kernels(rehearse):
     import jax
     import jax.numpy as jnp
     import numpy as np
 
     from phylonium_tpu.ops.bitplane_host import pair_counts_host
-    from phylonium_tpu.ops.device_counts import pair_counts_chunks
+    from phylonium_tpu.ops.device_counts import (
+        pair_counts_chunks,
+        pair_counts_states,
+    )
     from phylonium_tpu.ops.match_table import pair_counts_numpy
     from phylonium_tpu.ops.shapes import pack_states, pad_rows, packed_width
-    from phylonium_tpu.utils.platform import cpu_pinned, device_setup
+    from phylonium_tpu.utils.platform import device_setup
 
     device_setup()
     out = {"precision": "int8 one-hot operands, int32 accumulation (exact)"}
-    for n, length in size("kernels", rehearse):
+    for n, length, layout, sampled in size("kernels", rehearse):
         rng = np.random.default_rng(n * 7 + length)
         # all 11 states: both strands of A C G T and '!', plus INVALID
         states = rng.integers(0, 11, size=(n, length), dtype=np.uint8)
-        packed = pack_states(states, pad_rows(n), packed_width(length))
         t0 = time.time()
-        dev = jnp.asarray(packed)
-        subs, homs = pair_counts_chunks(
-            (dev,), n, packed=True, interpret=cpu_pinned()
-        )
+        if layout == "packed":
+            packed = pack_states(states, pad_rows(n), packed_width(length))
+            dev = jnp.asarray(packed)
+            del packed
+            subs, homs = pair_counts_chunks((dev,), n, packed=True)
+            del dev
+        else:
+            subs, homs = pair_counts_states(states)
         t_dev = time.time() - t0
-        del dev
+        rows = np.arange(n)
+        if sampled:
+            # the first and last rows sit at the lowest and highest
+            # offsets of the operand
+            rows = np.unique(np.concatenate([
+                [0, n - 1], rng.choice(n, sampled - 2, replace=False)
+            ]))
+            states = states[rows]
         t0 = time.time()
         if n <= 8:
             ref, ref_name = pair_counts_numpy(states), "numpy"
         else:
             ref, ref_name = pair_counts_host(states), "host_avx2"
         t_ref = time.time() - t0
-        if not (np.array_equal(subs, ref[0]) and np.array_equal(homs, ref[1])):
-            raise AssertionError(f"kernel {n} x {length}: counts differ "
-                                 f"from {ref_name}")
-        log(f"kernel {n} x {length}: exact vs {ref_name} (device "
-            f"{t_dev:.2f}s incl. compile, reference {t_ref:.1f}s)")
-        out[f"{n}x{length}"] = {"exact_vs": ref_name}
+        pick = np.ix_(rows, rows)
+        if not (np.array_equal(subs[pick], ref[0])
+                and np.array_equal(homs[pick], ref[1])):
+            raise AssertionError(f"kernel {n} x {length} {layout}: counts "
+                                 f"differ from {ref_name}")
+        what = f"{len(rows)} rows" if sampled else "all rows"
+        log(f"kernel {n} x {length} {layout}: exact vs {ref_name}, {what} "
+            f"(device {t_dev:.2f}s incl. transfer and compile, reference "
+            f"{t_ref:.1f}s)")
+        out[f"{n}x{length}_{layout}"] = {"exact_vs": ref_name,
+                                         "rows_compared": len(rows)}
+        del states
     jax.clear_caches()
     return out
 
@@ -353,14 +426,13 @@ def phase_timing(rehearse):
     )
     from phylonium_tpu.ops.match_matrix import block_counts
     from phylonium_tpu.ops.shapes import pack_states, packed_width
-    from phylonium_tpu.utils.platform import cpu_pinned, device_setup
+    from phylonium_tpu.utils.platform import device_setup
 
     device_setup()
-    interpret = cpu_pinned()
     stats = jax.devices()[0].memory_stats() or {}
     free = stats.get("bytes_limit", 8 << 30) - stats.get("bytes_in_use", 0)
     out = {}
-    shapes = size("kernels", rehearse)[1:]
+    shapes = [s[:2] for s in size("kernels", rehearse)[1:5]]
     for n, length in shapes:
         rng = np.random.default_rng(n * 7 + length)
         states = rng.integers(0, 11, size=(n, length), dtype=np.uint8)
@@ -368,15 +440,15 @@ def phase_timing(rehearse):
         _, uwidth = panel_shape(n, length)
 
         dev = jnp.asarray(pack_states(states, n_pad, pwidth))
-        t_packed = _median(lambda: panel_counts(dev, True, interpret), 5)
+        t_packed = _median(lambda: panel_counts(dev, True), 5)
         del dev
         udev = concat_pad((jnp.asarray(states),), n_pad, uwidth, INVALID)
-        t_bytes = _median(lambda: panel_counts(udev, False, interpret), 5)
+        t_bytes = _median(lambda: panel_counts(udev, False), 5)
         del udev
 
         def serial_from_host():
             d = concat_pad((jnp.asarray(states),), n_pad, uwidth, INVALID)
-            return panel_counts(d, False, interpret)
+            return panel_counts(d, False)
 
         t_serial = _median(serial_from_host, 3)
 
@@ -472,10 +544,13 @@ def phase_devd(rehearse):
 
 
 def phase_four(rehearse):
-    """The multi-device path: the CLI with four cards visible (auto mesh)
-    and with --mesh 2,2, byte-compared with a one-card run and with the
-    host.  The runs share a mapping checkpoint, so only the first one
-    maps; the compare is what differs."""
+    """The multi-device path: the CLI with four cards visible (auto mesh,
+    whose raced device leg may lose to the host), with --mesh 1,4 (the
+    shape the auto mesh takes: one row of four, each card counting its
+    column shard of the whole panel) and with --mesh 2,2 (rows gathered
+    across cards), byte-compared with a one-card run and with the host.
+    The runs share a mapping checkpoint, so only the first one maps; the
+    compare is what differs."""
     n, length = size("four", rehearse)
     d = os.path.join(WORK, f"panel_{n}x{length}")
     t0 = time.time()
@@ -485,6 +560,9 @@ def phase_four(rehearse):
     report = os.path.join(d, "report.json")
     host, _, t_host = run_cli(["--count-backend", "host", *ckpt], files, d)
     auto, rep_auto, t_auto = run_cli(ckpt, files, d, report=report)
+    mesh14, rep_mesh14, t_mesh14 = run_cli(
+        ["--mesh", "1,4", *ckpt], files, d, report=report
+    )
     mesh, rep_mesh, t_mesh = run_cli(
         ["--mesh", "2,2", *ckpt], files, d, report=report
     )
@@ -493,12 +571,13 @@ def phase_four(rehearse):
     one, rep_one, t_one = run_cli(
         ["--count-backend", "device", *ckpt], files, d, one_env, report
     )
-    for label, out in (("auto mesh", auto), ("--mesh 2,2", mesh),
-                       ("one card", one)):
+    for label, out in (("auto mesh", auto), ("--mesh 1,4", mesh14),
+                       ("--mesh 2,2", mesh), ("one card", one)):
         if out != host:
             raise AssertionError(f"four: {label} stdout differs from host")
-    if rep_mesh.get("compare_carrier") != "mesh":
-        raise AssertionError(f"four: --mesh 2,2 carrier {rep_mesh}")
+    for label, rep in (("--mesh 1,4", rep_mesh14), ("--mesh 2,2", rep_mesh)):
+        if rep.get("compare_carrier") != "mesh":
+            raise AssertionError(f"four: {label} carrier {rep}")
     leg = rep_auto.get("device_leg") or {}
     if not rehearse and leg.get("outcome") not in ("won", "lost"):
         raise AssertionError(f"four: auto device leg {leg}")
@@ -507,9 +586,11 @@ def phase_four(rehearse):
         "identical": True,
         "host_s": round(t_host, 3),
         "auto_s": round(t_auto, 3),
+        "mesh14_s": round(t_mesh14, 3),
         "mesh22_s": round(t_mesh, 3),
         "one_card_s": round(t_one, 3),
         "auto_report": rep_auto,
+        "mesh14_report": rep_mesh14,
         "mesh22_report": rep_mesh,
         "one_card_report": rep_one,
     }
@@ -522,6 +603,7 @@ PHASES = {
     "golden": phase_golden,
     "eco29": phase_eco29,
     "auto600": phase_auto600,
+    "stream600": phase_stream600,
     "kernels": phase_kernels,
     "timing": phase_timing,
     "devd": phase_devd,
@@ -624,7 +706,7 @@ def main() -> None:
             ["timing"] if args.time_kernels else []
         )
     else:
-        phases = ["golden", "eco29", "auto600", "kernels"]
+        phases = ["golden", "eco29", "auto600", "stream600", "kernels"]
     try:
         probe = run_phase("probe", env, args.rehearse)
         if probe["platform"] != "gpu" and not args.rehearse:

@@ -207,7 +207,7 @@ def map_count_lowmem(
         if env_stream == "force" or not cpu_pinned():
             try:
                 feeder = DeviceRowFeeder(
-                    n, ref_len, interpret=cpu_pinned(),
+                    n, ref_len,
                     shipper=getattr(cfg, "_query_shipper", None),
                     max_backlog=2,  # groups here are copies, not views
                 )

@@ -8,8 +8,8 @@ chunks are concatenated and padded on the device, counted by the fused
 kernel (ops/pallas_match.py) and fetched once as exact int64
 (substitutions, homologs).
 
-Interpret mode exists only for CPU-pinned runs (tests); the caller
-passes ``interpret=cpu_pinned()``.
+The kernel runs in interpret mode only on CPU-pinned runs (tests);
+``panel_counts`` decides that here, for every caller.
 """
 
 from __future__ import annotations
@@ -47,12 +47,18 @@ def concat_pad(chunks, n_pad: int, width: int, fill: int):
 
 
 @functools.partial(jax.jit, static_argnames=("packed", "interpret"))
-def panel_counts(dev, packed: bool, interpret: bool = False):
-    """[2, n_pad, n_pad] int32 (matches, homs) of one padded panel."""
+def _panel_counts(dev, packed: bool, interpret: bool):
     m, h = cross_counts(
         dev, dev, packed=packed, symmetric=True, interpret=interpret
     )
     return jnp.stack((m, h))
+
+
+def panel_counts(dev, packed: bool):
+    """[2, n_pad, n_pad] int32 (matches, homs) of one padded panel."""
+    from phylonium_tpu.utils.platform import cpu_pinned
+
+    return _panel_counts(dev, packed, cpu_pinned())
 
 
 def panel_shape(rows: int, width: int) -> tuple[int, int]:
@@ -67,7 +73,6 @@ def pair_counts_chunks(
     n: int,
     *,
     packed: bool = True,
-    interpret: bool = False,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All-pairs (substitutions, homologs) of device-resident row chunks.
 
@@ -82,7 +87,7 @@ def pair_counts_chunks(
     n_pad, width = panel_shape(rows, chunks[0].shape[1])
     fill = _PACKED_PAD if packed else INVALID
     dev = concat_pad(chunks, n_pad, width, fill)
-    stacked = np.asarray(panel_counts(dev, packed, interpret))
+    stacked = np.asarray(panel_counts(dev, packed))
     matches = stacked[0, :n, :n].astype(np.int64)
     homs = stacked[1, :n, :n].astype(np.int64)
     subs = homs - matches
@@ -91,17 +96,14 @@ def pair_counts_chunks(
     return subs, homs
 
 
-def pair_counts_states(
-    states, interpret: bool = False
-) -> tuple[np.ndarray, np.ndarray]:
+def pair_counts_states(states) -> tuple[np.ndarray, np.ndarray]:
     """All-pairs counts of a [N, L] state matrix (host or device array).
 
     The states ship unpacked and are padded on the device: on a local
     card the transfer of the unpacked bytes costs less than packing
     them on the host (PERF.md)."""
     return pair_counts_chunks(
-        (jnp.asarray(states),), states.shape[0], packed=False,
-        interpret=interpret,
+        (jnp.asarray(states),), states.shape[0], packed=False
     )
 
 
@@ -114,4 +116,4 @@ def prewarm(n: int, ref_len: int, packed: bool) -> None:
     width = packed_width(ref_len) if packed else ref_len
     n_pad, width = panel_shape(n, width)
     spec = jax.ShapeDtypeStruct((n_pad, width), jnp.uint8)
-    panel_counts.lower(spec, packed, cpu_pinned()).compile()
+    _panel_counts.lower(spec, packed, cpu_pinned()).compile()

@@ -38,7 +38,7 @@ from phylonium_tpu.ops.shapes import (
 
 
 def _local_counts(states_local: jnp.ndarray, symmetric: bool,
-                  packed: bool, interpret: bool = False):
+                  packed: bool, interpret: bool):
     """Shard counts: my rows x all rows of my column shard.
 
     The 'rows'-axis all_gather is the path's only bulk inter-device
@@ -78,7 +78,7 @@ def _local_counts(states_local: jnp.ndarray, symmetric: bool,
 @functools.partial(
     jax.jit, static_argnames=("mesh", "n_rows", "packed", "interpret"),
 )
-def _sharded_counts(states, mesh, n_rows, packed, interpret=False):
+def _sharded_counts_jit(states, mesh, n_rows, packed, interpret):
     local = functools.partial(
         _local_counts, symmetric=n_rows == 1, packed=packed,
         interpret=interpret,
@@ -92,6 +92,14 @@ def _sharded_counts(states, mesh, n_rows, packed, interpret=False):
         check_vma=False,
     )
     return fn(states)
+
+
+def _sharded_counts(states, mesh, n_rows: int, packed: bool):
+    """(matches, homs) [N_pad, N_pad] of a sharded panel; the kernel
+    runs in interpret mode only on CPU-pinned runs (tests)."""
+    from phylonium_tpu.utils.platform import cpu_pinned
+
+    return _sharded_counts_jit(states, mesh, n_rows, packed, cpu_pinned())
 
 
 def sharded_shape(
@@ -211,7 +219,7 @@ def comm_account(
     sharding = NamedSharding(mesh, P("rows", "cols"))
     spec = jax.ShapeDtypeStruct((n_pad, l_pad), np.uint8, sharding=sharding)
     hlo = (
-        _sharded_counts.lower(spec, mesh, n_rows, False, cpu_pinned())
+        _sharded_counts_jit.lower(spec, mesh, n_rows, False, cpu_pinned())
         .compile()
         .as_text()
     )
@@ -242,17 +250,8 @@ def comm_account(
 def pair_counts_sharded(
     states: np.ndarray,
     mesh: jax.sharding.Mesh,
-    interpret: bool | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """All-pairs (substitutions, homologs) over a ('rows','cols') mesh.
-
-    ``interpret`` defaults to the CPU pin (the kernel's interpret mode
-    exists only for CPU-pinned runs).
-    """
-    if interpret is None:
-        from phylonium_tpu.utils.platform import cpu_pinned
-
-        interpret = cpu_pinned()
+    """All-pairs (substitutions, homologs) over a ('rows','cols') mesh."""
     n, length = states.shape
     n_rows = mesh.shape["rows"]
     n_cols = mesh.shape["cols"]
@@ -274,5 +273,5 @@ def pair_counts_sharded(
         )
     else:
         states_dev = jax.device_put(states, sharding)
-    m, h = _sharded_counts(states_dev, mesh, n_rows, False, interpret)
+    m, h = _sharded_counts(states_dev, mesh, n_rows, False)
     return gathered_counts(m, h, n)

@@ -52,7 +52,7 @@ class PodShardFeeder:
     ``jax.make_array_from_single_device_arrays``.
     """
 
-    def __init__(self, n: int, ref_len: int, mesh, interpret: bool = False):
+    def __init__(self, n: int, ref_len: int, mesh):
         import jax
 
         from phylonium_tpu.parallel.distributed import sharded_shape
@@ -62,7 +62,6 @@ class PodShardFeeder:
         self.n = n
         self.ref_len = ref_len
         self.mesh = mesh
-        self.interpret = interpret
         self.n_rows = mesh.shape["rows"]
         self.n_cols = mesh.shape["cols"]
         self.plen, self.n_pad, self.l_pad = sharded_shape(
@@ -160,9 +159,7 @@ class PodShardFeeder:
             NamedSharding(self.mesh, P("rows", "cols")),
             [local],
         )
-        m, h = _sharded_counts(
-            global_arr, self.mesh, self.n_rows, True, self.interpret
-        )
+        m, h = _sharded_counts(global_arr, self.mesh, self.n_rows, True)
         return gathered_counts(m, h, self.n)
 
 
@@ -184,13 +181,10 @@ def map_pileup_count_streamed_mp(
 
     from phylonium_tpu.core.map_native import map_batch_native
     from phylonium_tpu.parallel.multihost import make_pod_mesh
-    from phylonium_tpu.utils.platform import cpu_pinned
     from phylonium_tpu.utils.progress import ProgressBar
 
     mesh = make_pod_mesh()
-    feeder = PodShardFeeder(
-        len(queries), len(ref.subject), mesh, interpret=cpu_pinned()
-    )
+    feeder = PodShardFeeder(len(queries), len(ref.subject), mesh)
     group_rows = int(
         os.environ.get("PHYLONIUM_TPU_STREAM_GROUP") or DEFAULT_GROUP_ROWS
     )

@@ -162,7 +162,7 @@ def test_feeder_devd_matches_oracle(rng, devd_env):
 
     n, length = 13, 900
     queries, homologies = _panel(rng, n, length)
-    feeder = DeviceRowFeeder(n, length, interpret=True)
+    feeder = DeviceRowFeeder(n, length)
     assert feeder._devd
     lo = 0
     for g in (5, 5, 3):
@@ -297,7 +297,7 @@ def test_slow_build_never_stalls_group_replies(rng, tmp_path, monkeypatch):
         n, length = 9, 600
         queries, homologies = _panel(rng, n, length)
         feeder = DeviceRowFeeder(
-            n, length, interpret=True, max_backlog=1
+            n, length, max_backlog=1
         )
         t0 = time.time()
         for lo in (0, 3, 6):
@@ -339,7 +339,7 @@ def test_cancel_keeps_shipper_alive_under_drain(rng, devd_env, monkeypatch):
 
     monkeypatch.delenv("PHYLONIUM_TPU_SHIP_DRAIN", raising=False)
     shipper = QueryShipper(n)
-    feeder = DeviceRowFeeder(n, 500, interpret=True, shipper=shipper)
+    feeder = DeviceRowFeeder(n, 500, shipper=shipper)
     feeder.cancel()
     assert shipper._cancelled, "plain cancel must stop the shipper"
 
@@ -347,7 +347,7 @@ def test_cancel_keeps_shipper_alive_under_drain(rng, devd_env, monkeypatch):
     shipper2 = QueryShipper(n)
     for q in queries:
         shipper2.add(q)
-    feeder2 = DeviceRowFeeder(n, 500, interpret=True, shipper=shipper2)
+    feeder2 = DeviceRowFeeder(n, 500, shipper=shipper2)
     feeder2.cancel()
     assert not shipper2._cancelled, "drain run must keep seeding"
     assert shipper2.drain(30.0) is True  # panel still parks fully

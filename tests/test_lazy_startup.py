@@ -127,16 +127,18 @@ def test_device_path_ignores_reported_platform(monkeypatch, platform):
     dev.platform = platform
     seen = []
 
-    def spy(states, interpret=False):
+    def spy(padded, packed, interpret):
+        # the kernel's (matches, homs) from the numpy oracle
         seen.append(interpret)
-        return pair_counts_numpy(states)
+        subs, homs = pair_counts_numpy(np.asarray(padded))
+        return np.stack((homs - subs, homs))
 
     import phylonium_tpu.utils.cache as cache
 
     monkeypatch.setattr(jax, "devices", lambda *a: [dev])
     monkeypatch.setattr(plat, "cpu_pinned", lambda: False)
     monkeypatch.setattr(cache, "_enabled", True)  # keep the worker's config
-    monkeypatch.setattr(dc, "pair_counts_states", spy)
+    monkeypatch.setattr(dc, "_panel_counts", spy)
     states = np.random.default_rng(1).integers(0, 11, (4, 300), np.uint8)
     subs, homs = pipe.pair_counts(states, RunConfig(count_backend="device"))
     assert seen == [False]

@@ -18,8 +18,10 @@ from phylonium_tpu.ops.device_counts import (
 )
 from phylonium_tpu.ops.match_matrix import block_counts
 from phylonium_tpu.ops.match_table import pair_counts_numpy
+import phylonium_tpu.ops.pallas_match as pm
 from phylonium_tpu.ops.pallas_match import (
     _PARTNERS,
+    column_ranges,
     cross_counts_pallas,
     split_count,
 )
@@ -49,7 +51,7 @@ def test_pallas_equals_numpy(seed):
     length = int(rng.integers(100, 1200))
     states = rng.integers(0, 11, size=(n, length)).astype(np.uint8)
     s0, h0 = pair_counts_numpy(states)
-    s1, h1 = pair_counts_states(states, interpret=True)
+    s1, h1 = pair_counts_states(states)
     assert np.array_equal(s0, s1)
     assert np.array_equal(h0, h1)
 
@@ -83,7 +85,7 @@ def test_row_blocked_equals_flat():
     n = 2 * SMALL_TILE + 5
     states = rng.integers(0, 11, size=(n, 700)).astype(np.uint8)
     s0, h0 = pair_counts_numpy(states)
-    s1, h1 = pair_counts_states(states, interpret=True)
+    s1, h1 = pair_counts_states(states)
     assert np.array_equal(s0, s1)
     assert np.array_equal(h0, h1)
     n_pad, width = panel_shape(n, packed_width(700))
@@ -112,8 +114,8 @@ def test_unpacked_device_input_matches_packed(rng):
     """A device-resident unpacked panel counts like the host-packed one
     (the wrapper pads rows and columns on the device)."""
     states = rng.integers(0, 11, size=(9, 333)).astype(np.uint8)
-    packed = pair_counts_states(states, interpret=True)
-    unpacked = pair_counts_states(jnp.asarray(states), interpret=True)
+    packed = pair_counts_states(states)
+    unpacked = pair_counts_states(jnp.asarray(states))
     for a, b in zip(packed, unpacked):
         assert np.array_equal(a, b)
 
@@ -125,7 +127,7 @@ def test_chunks_concatenate_and_pad(rng):
     width = packed_width(500)
     packed = pack_states(states, 11, width)
     chunks = [jnp.asarray(packed[lo:hi]) for lo, hi in ((0, 4), (4, 5), (5, 11))]
-    s1, h1 = pair_counts_chunks(chunks, 11, interpret=True)
+    s1, h1 = pair_counts_chunks(chunks, 11)
     s0, h0 = pair_counts_numpy(states)
     assert np.array_equal(s0, s1)
     assert np.array_equal(h0, h1)
@@ -141,6 +143,69 @@ def test_tile_and_padding_rules():
     assert split_count(1, 10) == 10
     assert split_count(10_000, 10) == 1
     assert split_count(36, 5000) * 36 >= 264
+
+
+@pytest.mark.parametrize(
+    "rows_a,rows_b,width,bk,n_ranges",
+    [
+        (1024, 1024, 1 << 20, 64, 1),  # 1 GiB: 32-bit offsets suffice
+        (512, 512, 5_242_880, 64, 2),  # 450 x 5 Mbp state bytes, 2.7 GB
+        (1024, 1024, 2_621_440, 64, 2),  # 1000 x 5 Mbp packed, 2.7 GB
+        (4096, 4096, 1_048_576, 64, 2),  # exactly 4 GiB: still 32-bit
+        (1024, 1024, 5_242_880, 64, 1),  # 5.4 GB: the lowering's 64-bit
+        # a row shard in the band against all rows above it
+        (512, 1024, 5_242_880, 64, 3),
+    ],
+)
+def test_column_ranges_keep_offsets_in_range(rows_a, rows_b, width, bk,
+                                             n_ranges):
+    """Operands between 2**31 elements and 2**32 bytes are launched in
+    column ranges of at most 2**31 elements; the ranges tile the width
+    in whole column steps."""
+    ranges = column_ranges(rows_a, rows_b, width, bk)
+    assert len(ranges) == n_ranges
+    assert ranges[0][0] == 0 and ranges[-1][1] == width
+    for (lo, hi), nxt in zip(ranges, ranges[1:] + [(width, None)]):
+        assert hi == nxt[0] and lo % bk == 0 and hi % bk == 0 and hi > lo
+        if n_ranges > 1:
+            assert max(rows_a, rows_b) * (hi - lo) <= 1 << 31
+
+
+def test_column_ranges_launches_sum_exactly(rng, monkeypatch):
+    """With the offset limits shrunk to toy sizes, the kernel launches
+    once per column range and the summed counts equal the one-launch
+    counts and the oracle, for the symmetric and the rectangular grid."""
+    states = rng.integers(0, 11, size=(9, 890)).astype(np.uint8)
+    s0, h0 = pair_counts_numpy(states)
+    width = packed_width(890)
+    packed = jnp.asarray(pack_states(states, SMALL_TILE, width))
+    whole = cross_counts_pallas(packed, packed, symmetric=True, interpret=True)
+    launches = []
+    real = pm._launch
+
+    def spy(a, b, **kw):
+        launches.append(a.shape[1])
+        return real(a, b, **kw)
+
+    monkeypatch.setattr(pm, "_launch", spy)
+    monkeypatch.setattr(pm, "_I32_ELEMS", SMALL_TILE * 32 * 5)
+    monkeypatch.setattr(pm, "_I64_BYTES", SMALL_TILE * width)
+    cross_counts_pallas.clear_cache()
+    try:
+        sym = cross_counts_pallas(packed, packed, symmetric=True, interpret=True)
+        assert launches == [160, 160, 160, 32]
+        rect = cross_counts_pallas(packed, packed, interpret=True)
+    finally:
+        cross_counts_pallas.clear_cache()
+    for x, y, z in zip(whole, sym, rect):
+        assert np.array_equal(np.asarray(x), np.asarray(y))
+        assert np.array_equal(np.asarray(x), np.asarray(z))
+    m = np.asarray(sym[0], np.int64)[:9, :9]
+    h = np.asarray(sym[1], np.int64)[:9, :9]
+    sub = h - m
+    np.fill_diagonal(sub, 0)
+    np.fill_diagonal(h, 0)
+    assert np.array_equal(sub, s0) and np.array_equal(h, h0)
 
 
 def test_padding_contributes_nothing(rng):

@@ -55,8 +55,8 @@ def test_sharded_pallas_kernel_equals_single(states, shape):
     """The fused-kernel shard body (interpret mode on CPU) against the
     single-device entry point."""
     mesh = make_mesh(shape)
-    s_ref, h_ref = pair_counts_states(states, interpret=True)
-    s, h = pair_counts_sharded(states, mesh, interpret=True)
+    s_ref, h_ref = pair_counts_states(states)
+    s, h = pair_counts_sharded(states, mesh)
     assert np.array_equal(s, s_ref)
     assert np.array_equal(h, h_ref)
 

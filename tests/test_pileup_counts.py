@@ -85,7 +85,7 @@ def test_pileup_equals_oracle(seed):
     assert np.array_equal(s1, subs_o)
     assert np.array_equal(h1, homs_o)
 
-    s2, h2 = pair_counts_states(states, interpret=True)
+    s2, h2 = pair_counts_states(states)
     assert np.array_equal(s2, subs_o)
     assert np.array_equal(h2, homs_o)
 
@@ -95,7 +95,7 @@ def test_device_path_odd_sizes():
     rng = np.random.default_rng(7)
     states = rng.integers(0, 11, size=(3, 1037)).astype(np.uint8)
     s1, h1 = pair_counts_numpy(states)
-    s2, h2 = pair_counts_states(states, interpret=True)
+    s2, h2 = pair_counts_states(states)
     assert np.array_equal(s1, s2)
     assert np.array_equal(h1, h2)
 

@@ -16,13 +16,13 @@ def test_prewarm_shape_matches_wrapper_call(monkeypatch):
     foreground.
     """
     calls = []
-    real = dc.panel_counts
+    real = dc._panel_counts
 
-    def spy(dev, packed, interpret=False):
+    def spy(dev, packed, interpret):
         calls.append((dev.shape, packed))
-        return real(dev, packed, True)
+        return real(dev, packed, interpret)
 
-    monkeypatch.setattr(dc, "panel_counts", spy)
+    monkeypatch.setattr(dc, "_panel_counts", spy)
     lowered = []
 
     class FakeLower:
@@ -43,10 +43,10 @@ def test_prewarm_shape_matches_wrapper_call(monkeypatch):
         states = np.random.default_rng(0).integers(
             0, 11, size=(n, length)
         ).astype(np.uint8)
-        dc.pair_counts_states(states, interpret=True)
-        monkeypatch.setattr(dc, "panel_counts", FakeLower)
+        dc.pair_counts_states(states)
+        monkeypatch.setattr(dc, "_panel_counts", FakeLower)
         dc.prewarm(n, length, packed=False)
-        monkeypatch.setattr(dc, "panel_counts", spy)
+        monkeypatch.setattr(dc, "_panel_counts", spy)
         assert calls == lowered, (n, length)
 
 

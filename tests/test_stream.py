@@ -61,7 +61,7 @@ def _panel(rng, n, ref_len):
 
 def _feed_all(queries, homologies, ref_len, groups, **kw):
     n = len(queries)
-    feeder = DeviceRowFeeder(n, ref_len, interpret=True, **kw)
+    feeder = DeviceRowFeeder(n, ref_len, **kw)
     lo = 0
     for g in groups:
         feeder.feed(queries[lo : lo + g], homologies[lo : lo + g])
@@ -172,7 +172,7 @@ def test_feeder_error_surfaces_in_finish(rng, monkeypatch):
     queries, homologies = _panel(rng, 8, 256)
     # patch before construction: the worker binds the builder at start
     monkeypatch.setattr(pd, "build_packed_rows_device", boom)
-    feeder = DeviceRowFeeder(8, 256, interpret=True)
+    feeder = DeviceRowFeeder(8, 256)
     feeder.feed(queries, homologies)
     with pytest.raises(RuntimeError, match="injected device fault"):
         feeder.finish()
